@@ -21,7 +21,7 @@ bench:
 	python bench.py
 
 smoke:
-	python scripts/tpu_smoke.py
+	python chip_smoke.py
 
 demos:
 	python examples/demo_binaural_rendering.py

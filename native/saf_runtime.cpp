@@ -1,4 +1,4 @@
-// saf_runtime — native real-time streaming runtime for the TPU framework.
+// saf_runtime — native real-time streaming runtime for the framework.
 //
 // The reference library's compute sits inside a plugin-style audio callback:
 // every example FIFO-frames arbitrary host block sizes into fixed 128-sample

@@ -1,11 +1,11 @@
-"""spatial_audio_framework_tpu — a TPU-native spatial-audio DSP framework.
+"""spatial_audio_framework_tpu — a spatial-audio DSP framework for accelerators.
 
 A ground-up JAX/XLA re-design with the capabilities of the Spatial Audio
 Framework (SAF v1.3.0, reference: github.com/ChristianScheer97/Spatial_Audio_Framework):
 Ambisonics encoding/decoding, spherical-harmonic array processing, VBAP,
 HRTF/binaural rendering, room simulation and convolution engines.
 
-Architecture (TPU-first, not a port):
+Architecture (a re-design for accelerators, not a port):
 
 * Every renderer is split into a host-side ``design()`` step (NumPy/SciPy,
   runs once per configuration change — the analogue of SAF's ``initCodec``)
@@ -13,7 +13,7 @@ Architecture (TPU-first, not a port):
   (the analogue of SAF's 128-sample audio callback, but batched over many
   hops and many streams at once).
 * Per-frequency-band loops in the reference become stacked batched einsums
-  that map onto the TPU MXU; filterbank state is carried functionally
+  that map onto the accelerator's matrix units; filterbank state is carried functionally
   through ``lax.scan``/explicit state pytrees instead of mutable handles.
 * Multi-stream scaling uses ``jax.sharding`` over a device mesh
   (see ``spatial_audio_framework_tpu.parallel``) rather than any
@@ -25,7 +25,7 @@ Subpackage map (reference layers in parentheses — see SURVEY.md):
 * ``ops``      — FFT/afSTFT/QMF/convolvers/veclib          (resources L1 + L2 hot ops)
 * ``modules``  — sh, hoa, vbap, hrir, cdf4sap, reverb, ...  (L3 domain modules)
 * ``models``   — the plugin-style renderers (ambi_bin, ...) (L4 examples)
-* ``parallel`` — mesh/sharding/streaming engine             (new, TPU-native)
+* ``parallel`` — mesh/sharding/streaming engine             (new)
 """
 
 __version__ = "0.1.0"

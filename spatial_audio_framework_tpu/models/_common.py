@@ -2,7 +2,7 @@
 ``examples/include/_common.h``): channel-order / normalisation enums, frame
 constants, and the model design pattern.
 
-Every model follows the same pure-functional TPU-native pattern:
+Every model follows the same pure-functional pattern:
 
 * ``Config``  — frozen dataclass of static parameters (trace-time constants;
   the analogue of the reference's set-parameter API + FRAME_SIZE macros).
@@ -77,11 +77,11 @@ def validate_config(cfg) -> None:
     hop = getattr(cfg, "hop", None)
     if hop is not None and (int(hop) <= 0 or (int(hop) & (int(hop) - 1))):
         err(f"hop={hop} must be a positive power of two")
-    mxu = getattr(cfg, "mxu_precision", None)
-    if mxu is not None:
+    mode = getattr(cfg, "matmul_precision", None)
+    if mode is not None:
         from spatial_audio_framework_tpu.ops import precision as _prec
         try:
-            _prec.normalize_mode(mxu)
+            _prec.normalize_mode(mode)
         except ValueError as e:
             err(str(e))
 

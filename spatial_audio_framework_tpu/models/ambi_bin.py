@@ -1,7 +1,7 @@
 """ambi_bin — binaural Ambisonic decoder (counterpart of
 ``examples/src/ambi_bin``; see call-stack trace in SURVEY.md §3.1).
 
-TPU-native design: ``design()`` performs the whole initCodec pipeline
+Design: ``design()`` performs the whole initCodec pipeline
 (HRIR → ITDs → afSTFT filterbank HRTFs → Voronoi weights → diffuse-field EQ →
 binaural decoder → truncation EQ) on host; the (ACN/N3D) input-convention
 conversion is folded into the per-band decoding matrix, so ``process()`` is
@@ -46,11 +46,10 @@ class AmbiBinConfig:
     enable_truncation_eq: bool = True   # only active for the LS method
     enable_rotation: bool = False
     hop: int = 128
-    # Per-config MXU matmul precision for the process paths
-    # ('default'|'high'|'highest'; None = the process default from
-    # ops/precision.py / SAF_TPU_MATMUL_PRECISION).  Applies to the fused
-    # Pallas kernels and the XLA einsum path alike.
-    mxu_precision: Optional[str] = None
+    # Matmul precision of the process paths ('default'|'high'|'highest';
+    # None = the process default from ops/precision.py /
+    # SAF_MATMUL_PRECISION).
+    matmul_precision: Optional[str] = None
 
     @property
     def nsh(self) -> int:
@@ -214,7 +213,7 @@ def process_ri(cfg: AmbiBinConfig, w_ri, state, x: jax.Array,
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
     bank = cfg.afstft
-    hp = _prec.to_xla(_prec.resolve_mode(cfg.mxu_precision))
+    hp = _prec.to_xla(_prec.resolve_mode(cfg.matmul_precision))
     Mre, Mim = w_ri
     if cfg.enable_rotation and cfg.order > 0:
         assert ypr is not None
@@ -228,13 +227,13 @@ def process_ri(cfg: AmbiBinConfig, w_ri, state, x: jax.Array,
         Mre = jnp.einsum("bes,st->bet", Mre, cv, precision=hp)
         Mim = jnp.einsum("bes,st->bet", Mim, cv, precision=hp)
     (sre, sim), state = ri.analysis_ri(bank, state, x,
-                                       mxu_mode=cfg.mxu_precision)
+                                       precision=cfg.matmul_precision)
     out_re = (jnp.einsum("bes,bsh->beh", Mre, sre, precision=hp)
               - jnp.einsum("bes,bsh->beh", Mim, sim, precision=hp))
     out_im = (jnp.einsum("bes,bsh->beh", Mre, sim, precision=hp)
               + jnp.einsum("bes,bsh->beh", Mim, sre, precision=hp))
     y, state = ri.synthesis_ri(bank, state, (out_re, out_im),
-                               mxu_mode=cfg.mxu_precision)
+                               precision=cfg.matmul_precision)
     return y, state
 
 
@@ -244,19 +243,16 @@ def init_state_batched(cfg: AmbiBinConfig, n_streams: int):
     return ri.init_state_batched(cfg.afstft, n_streams, cfg.nsh, C.NUM_EARS)
 
 
-def process_ri_batched(cfg: AmbiBinConfig, w_ri, state, x: jax.Array,
-                       use_pallas: bool = True, interpret: bool = False):
+def process_ri_batched(cfg: AmbiBinConfig, w_ri, state, x: jax.Array):
     """Stream-batched process_ri: x (S, nSH, T) → ((S, 2, T), state).
 
-    The throughput configuration: all streams' channels are flattened into
-    one batch for the fused pallas analysis front-end (see
-    ops.pallas_afstft), and the per-band decode runs as one einsum over
-    (streams × bands).  Don't wrap this in vmap — batching is native.
+    The throughput configuration: all streams render in one call of
+    ops.afstft_ri.render_tf_matrix_ri.  Don't wrap this in vmap — batching
+    is native.
     """
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
-    bank = cfg.afstft
-    mode = _prec.resolve_mode(cfg.mxu_precision)
+    mode = _prec.resolve_mode(cfg.matmul_precision)
     Mre, Mim = w_ri
     conv = _fuma_conv(cfg)
     if conv is not None:  # FuMa: conversion not folded at design time
@@ -264,30 +260,5 @@ def process_ri_batched(cfg: AmbiBinConfig, w_ri, state, x: jax.Array,
         hp_c = _prec.to_xla(mode)
         Mre = jnp.einsum("bes,st->bet", Mre, cv, precision=hp_c)
         Mim = jnp.einsum("bes,st->bet", Mim, cv, precision=hp_c)
-    if use_pallas:
-        # fully-fused path: hybrid + decode + synthesis in one kernel (the
-        # per-band mixing collapses into uniform-band taps; see
-        # ops.pallas_afstft.render_decode_synthesis_ri)
-        return ri.render_tf_matrix_fused(bank, state, x, Mre, Mim,
-                                         interpret=interpret, mxu_mode=mode)
-    spec_p, state = ri.analysis_ri_batched(bank, state, x,
-                                           use_pallas=use_pallas,
-                                           interpret=interpret, packed=True,
-                                           mxu_mode=mode)
-    hp = _prec.to_xla(mode)
-    # spec_p: (S, nSH, H, 2·B) packed [re | im]; M: (B, 2, nSH).  The whole
-    # complex multiply is ONE einsum over a (B, 2, nSH, 2out, 2in) tensor so
-    # the spectrum is read exactly once (the pipeline is HBM-bound):
-    #   [out_re; out_im][b] = [[Mre, -Mim], [Mim, Mre]][b] @ [sre; sim][b]
-    S, nsh, H, nb2 = spec_p.shape
-    B = nb2 // 2
-    M4 = jnp.stack([jnp.stack([Mre, -Mim], axis=-1),
-                    jnp.stack([Mim, Mre], axis=-1)], axis=-2)  # (B,2,nSH,2,2)
-    spec5 = spec_p.reshape(S, nsh, H, 2, B)
-    out = jnp.einsum("besij,zshjb->zehib", M4, spec5, precision=hp)
-    out_p = out.reshape(S, C.NUM_EARS, H, 2 * B)
-    y, state = ri.synthesis_ri_batched(bank, state, out_p,
-                                       use_pallas=use_pallas,
-                                       interpret=interpret, packed=True,
-                                       mxu_mode=mode)
-    return y, state
+    return ri.render_tf_matrix_ri(cfg.afstft, state, x, Mre, Mim,
+                                  precision=mode)

@@ -190,7 +190,7 @@ def process(cfg: AmbiDecConfig, w: AmbiDecWeights, state: AfSTFTState,
     return y, state
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 def init_state_batched(cfg: AmbiDecConfig, n_streams: int, n_ls: int):
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
@@ -200,13 +200,11 @@ def init_state_batched(cfg: AmbiDecConfig, n_streams: int, n_ls: int):
 
 
 def process_ri_batched(cfg: AmbiDecConfig, w: AmbiDecWeightsRI, state,
-                       x: jax.Array, use_pallas: bool = True,
-                       interpret: bool = False):
-    """Stream-batched process on the split real/imaginary pipeline with the
-    fused pallas afSTFT kernels: x (S, nSH, T) → ((S, nLS or 2, T), state).
-    w from :func:`design_ri` (the dual-band decoder is a real per-band
-    matrix; with binauralise_ls the folded H_bin·M RI pair)."""
+                       x: jax.Array):
+    """Stream-batched process on the split real/imaginary pipeline
+    (ops.afstft_ri.render_tf_matrix_ri): x (S, nSH, T) → ((S, nLS or 2, T),
+    state).  w from :func:`design_ri` (the dual-band decoder is a real
+    per-band matrix; with binauralise_ls the folded H_bin·M RI pair)."""
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
-    return ri.render_tf_matrix_ri(cfg.afstft, state, x, w.M_re, w.M_im,
-                                  use_pallas=use_pallas, interpret=interpret)
+    return ri.render_tf_matrix_ri(cfg.afstft, state, x, w.M_re, w.M_im)

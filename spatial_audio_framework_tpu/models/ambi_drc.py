@@ -101,7 +101,7 @@ def process(cfg: AmbiDrcConfig, state: AmbiDrcState, x: jax.Array):
     return y, AmbiDrcState(bank=bank_st, yl_z1=yl_last)
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 class AmbiDrcStateBatched(NamedTuple):
     bank: "object"      # ops.afstft_ri.AfSTFTStateBatched
@@ -117,8 +117,7 @@ def init_state_batched(cfg: AmbiDrcConfig, n_streams: int) -> AmbiDrcStateBatche
 
 
 def process_ri_batched(cfg: AmbiDrcConfig, state: AmbiDrcStateBatched,
-                       x: jax.Array, use_pallas: bool = True,
-                       interpret: bool = False):
+                       x: jax.Array):
     """Stream-batched process on the complex-free pipeline:
     x (S, nSH, T) → ((S, nSH, T), state).  The per-(band, slot) gain comes
     from the omni magnitude √(re²+im²) and multiplies both halves of the
@@ -127,8 +126,7 @@ def process_ri_batched(cfg: AmbiDrcConfig, state: AmbiDrcStateBatched,
 
     bank = cfg.afstft
     spec_p, bank_st = ri.analysis_ri_batched(bank, state.bank, x,
-                                             use_pallas=use_pallas,
-                                             interpret=interpret, packed=True)
+                                             packed=True)
     S, _, H, nb2 = spec_p.shape
     B = nb2 // 2
     boost = 10.0 ** (cfg.in_gain_db / 20.0)
@@ -153,7 +151,5 @@ def process_ri_batched(cfg: AmbiDrcConfig, state: AmbiDrcStateBatched,
     cdb = jnp.maximum(SPECTRAL_FLOOR, jnp.sqrt(10.0 ** (-yl / 20.0)))
     g = (cdb * makeup)[:, None]                       # (S, 1, H, B)
     out_p = spec_p * jnp.concatenate([g, g], axis=-1)
-    y, bank_st = ri.synthesis_ri_batched(bank, bank_st, out_p,
-                                         use_pallas=use_pallas,
-                                         interpret=interpret, packed=True)
+    y, bank_st = ri.synthesis_ri_batched(bank, bank_st, out_p, packed=True)
     return y, AmbiDrcStateBatched(bank=bank_st, yl_z1=yl_last)

@@ -5,7 +5,7 @@ Design: build the shoebox scene (default wall absorptions from
 ambi_roomsim.c:30), compute echograms at the given reflection order and
 render broadband SH RIRs per (receiver, source) pair.  Process: streaming
 partitioned convolution of the source signals with the RIR matrix — the
-TPU-native equivalent of the reference's per-image-source circular-buffer
+batched equivalent of the reference's per-image-source circular-buffer
 applicator (``ims_shoebox_applyEchogramTD``); outputs are identical once the
 RIR is rendered (the reference's TD path is itself a tap-accumulation of the
 same echogram).

@@ -240,14 +240,13 @@ def init_state_batched(cfg: Array2SHConfig, n_streams: int, n_sensors: int):
     return ri.init_state_batched(cfg.afstft, n_streams, n_sensors, cfg.nsh)
 
 
-def process_ri_batched(cfg: Array2SHConfig, w_ri, state, x: jax.Array,
-                       use_pallas: bool = True, interpret: bool = False):
-    """Stream-batched encoding on the complex-free fused-kernel pipeline:
-    x (S, Q, T) → ((S, nSH, T), state); w_ri from :func:`design_ri`."""
+def process_ri_batched(cfg: Array2SHConfig, w_ri, state, x: jax.Array):
+    """Stream-batched encoding on the complex-free pipeline
+    (ops.afstft_ri.render_tf_matrix_ri): x (S, Q, T) → ((S, nSH, T),
+    state); w_ri from :func:`design_ri`."""
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
-    return ri.render_tf_matrix_ri(cfg.afstft, state, x, w_ri[0], w_ri[1],
-                                  use_pallas=use_pallas, interpret=interpret)
+    return ri.render_tf_matrix_ri(cfg.afstft, state, x, w_ri[0], w_ri[1])
 
 
 def init_state(cfg: Array2SHConfig, n_sensors: int) -> AfSTFTState:

@@ -206,7 +206,7 @@ def process(cfg: BinauraliserConfig, w: BinauraliserWeights, state: AfSTFTState,
     return y, state
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 def init_state_batched(cfg: BinauraliserConfig, n_streams: int):
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
@@ -217,15 +217,14 @@ def init_state_batched(cfg: BinauraliserConfig, n_streams: int):
 def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
                        state, x: jax.Array, src_dirs_deg: jax.Array,
                        src_gains: Optional[jax.Array] = None,
-                       ypr: Optional[jax.Array] = None,
-                       use_pallas: bool = True, interpret: bool = False):
+                       ypr: Optional[jax.Array] = None):
     """Stream-batched process: x (S, nSrc, T), src_dirs_deg (S, nSrc, 2),
     src_gains (S, nSrc) or None, ypr (S, 3) or None → ((S, 2, T), state).
 
-    Runs on the split real/imaginary pipeline with the fused pallas afSTFT
-    kernels (ops.afstft_ri.render_tf_matrix_ri); the per-stream interpolated
-    HRTFs become the per-stream mixing matrices.  Don't wrap in vmap —
-    batching is native.
+    Runs on the split real/imaginary pipeline
+    (ops.afstft_ri.render_tf_matrix_ri); the per-stream interpolated HRTFs
+    become the per-stream mixing matrices.  Don't wrap in vmap — batching
+    is native.
     """
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
@@ -239,7 +238,5 @@ def process_ri_batched(cfg: BinauraliserConfig, w: BinauraliserWeightsRI,
         src_dirs_deg = geo.unit_cart2sph(u, degrees=True)
     Hre, Him = jax.vmap(lambda d: interp_hrtfs_ri(cfg, w, d))(src_dirs_deg)
     # (S, nBands, 2, nSrc) per-stream mixing matrices, complex-free
-    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him,
-                                      use_pallas=use_pallas,
-                                      interpret=interpret)
+    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him)
     return y / np.sqrt(cfg.n_sources), state

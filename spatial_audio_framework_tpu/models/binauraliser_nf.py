@@ -100,7 +100,7 @@ def process(cfg: BinauraliserNFConfig, w: B.BinauraliserWeights,
     return y, state
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 def design_ri(cfg: BinauraliserNFConfig, *args, **kw):
     return B.design_ri(cfg, *args, **kw)
@@ -142,8 +142,7 @@ def _dvf_band_gains_ri(cfg: BinauraliserNFConfig, freqs: jax.Array,
 def process_ri_batched(cfg: BinauraliserNFConfig, w, state, x: jax.Array,
                        src_dirs_deg: jax.Array, src_dists_m: jax.Array,
                        src_gains: Optional[jax.Array] = None,
-                       ypr: Optional[jax.Array] = None,
-                       use_pallas: bool = True, interpret: bool = False):
+                       ypr: Optional[jax.Array] = None):
     """Stream-batched near-field binauraliser on the complex-free pipeline:
     x (S, nSrc, T), src_dirs_deg (S, nSrc, 2), src_dists_m (S, nSrc)
     → ((S, 2, T), state).  w from :func:`design_ri`."""
@@ -164,7 +163,5 @@ def process_ri_batched(cfg: BinauraliserNFConfig, w, state, x: jax.Array,
         return Are * Bre - Aim * Bim, Are * Bim + Aim * Bre
 
     Hre, Him = jax.vmap(per_stream)(src_dirs_deg, src_dists_m)
-    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him,
-                                      use_pallas=use_pallas,
-                                      interpret=interpret)
+    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him)
     return y / np.sqrt(cfg.n_sources), state

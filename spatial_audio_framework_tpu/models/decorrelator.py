@@ -97,7 +97,7 @@ def process(cfg: DecorrelatorConfig, design_data: dict,
     return y, DecorrelatorState(bank=bank_st, lattice=lat_st, ducker=ducker_st)
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 class DecorrelatorStateBatched(NamedTuple):
     bank: "object"                      # afstft_ri.AfSTFTStateBatched
@@ -121,16 +121,13 @@ def init_state_batched(cfg: DecorrelatorConfig, design_data: dict,
 
 
 def process_ri_batched(cfg: DecorrelatorConfig, design_data: dict,
-                       state: DecorrelatorStateBatched, x: jax.Array,
-                       use_pallas: bool = True, interpret: bool = False):
+                       state: DecorrelatorStateBatched, x: jax.Array):
     """Stream-batched process on the complex-free pipeline:
     x (S, nCH, T) → ((S, nCH, T), state)."""
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
     bank = cfg.afstft
-    (sre, sim), bank_st = ri.analysis_ri_batched(bank, state.bank, x,
-                                                 use_pallas=use_pallas,
-                                                 interpret=interpret)
+    (sre, sim), bank_st = ri.analysis_ri_batched(bank, state.bank, x)
     # → per-stream (nBands, nCH, H) frames
     fre = jnp.moveaxis(sre, -1, 1)       # (S, nBands, nCH, H)
     fim = jnp.moveaxis(sim, -1, 1)
@@ -157,8 +154,6 @@ def process_ri_batched(cfg: DecorrelatorConfig, design_data: dict,
     out_im = cfg.decor_amount * wim + (1.0 - cfg.decor_amount) * orig_im
     Yre = jnp.moveaxis(out_re, 1, -1)    # (S, nCH, H, nBands)
     Yim = jnp.moveaxis(out_im, 1, -1)
-    y, bank_st = ri.synthesis_ri_batched(bank, bank_st, (Yre, Yim),
-                                         use_pallas=use_pallas,
-                                         interpret=interpret)
+    y, bank_st = ri.synthesis_ri_batched(bank, bank_st, (Yre, Yim))
     return y, DecorrelatorStateBatched(bank=bank_st, lattice=lat_st,
                                        ducker=ducker_st)

@@ -108,7 +108,7 @@ def process(cfg: PannerConfig, weights: PannerWeights, state: AfSTFTState,
     return y, state
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 def init_state_batched(cfg: PannerConfig, n_streams: int, n_ls: int):
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
@@ -118,12 +118,11 @@ def init_state_batched(cfg: PannerConfig, n_streams: int, n_ls: int):
 
 def process_ri_batched(cfg: PannerConfig, weights: PannerWeights, state,
                        x: jax.Array, src_dirs_deg: jax.Array,
-                       ypr: Optional[jax.Array] = None,
-                       use_pallas: bool = True, interpret: bool = False):
+                       ypr: Optional[jax.Array] = None):
     """Stream-batched process: x (S, nSrc, T), src_dirs_deg (S, nSrc, 2),
     ypr (S, 3) or None → ((S, nLS, T), state).  The frequency-dependent
     VBAP gains (real, per band) become per-stream mixing matrices on the
-    complex-free fused-kernel pipeline."""
+    complex-free pipeline (ops.afstft_ri.render_tf_matrix_ri)."""
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
     if ypr is not None:
@@ -142,5 +141,4 @@ def process_ri_batched(cfg: PannerConfig, weights: PannerWeights, state,
     # G: (S, nBands, nSrc, nLS) → mixing (S, nBands, nLS, nSrc);
     # 1/sqrt(nSources) master scaling (panner.c:312-314)
     G = (jnp.swapaxes(G, -1, -2) / np.sqrt(cfg.n_sources)).astype(jnp.float32)
-    return ri.render_tf_matrix_ri(cfg.afstft, state, x, G, None,
-                                  use_pallas=use_pallas, interpret=interpret)
+    return ri.render_tf_matrix_ri(cfg.afstft, state, x, G, None)

@@ -9,10 +9,9 @@ max analysis order (PWD / MVDR / CroPaC-LCMV / MUSIC(±log) / MinNorm(±log))
 → map averaging on the analysis grid → VBAP interpolation to the dense
 display grid (powermap.c:345-358).
 
-TPU-native: the whole chain runs in split real/imaginary arithmetic
-(ops.afstft_ri front-end + ops.herm_ri covariance algebra) — no complex64
-ever reaches the device, so the map reads back on runtimes that poison
-complex transfers.  Every mode including CroPaC is jittable; the per-band
+The whole chain runs in split real/imaginary arithmetic (ops.afstft_ri
+front-end + ops.herm_ri covariance algebra) — no complex64 ever reaches
+the device graph.  Every mode including CroPaC is jittable; the per-band
 analysis orders are static config (shape-determining, as in the reference
 where changing them triggers a recalc), while the pmapEQ weights are traced
 and can stream per call.
@@ -166,8 +165,8 @@ def init_state_batched(cfg: PowermapConfig, w: PowermapWeights,
                        n: int) -> PowermapState:
     """State for ``analysis_batched``: n independent analyser instances.
     The filterbank state is the BATCHED afSTFT state (15-hop input tail,
-    hybrid warm-up recomputed), so the fused Pallas analysis front-end
-    serves all instances in one kernel on TPU."""
+    hybrid warm-up recomputed), so one batched analysis serves all
+    instances."""
     n_bands = cfg.afstft.n_bands
     return PowermapState(
         bank=ri.init_state_batched(cfg.afstft, n, cfg.nsh, 1),
@@ -182,17 +181,13 @@ def analysis_batched(cfg: PowermapConfig, w: PowermapWeights,
     """n independent powermap instances in ONE dispatch.
 
     x: (n, nSH, T) → (pmaps (n, nInterp), state from init_state_batched).
-    Unlike ``vmap(analysis)``, the afSTFT front-end runs as ONE fused
-    batched kernel over all n·nSH channels (ops.afstft_ri
-    .analysis_ri_batched → the Pallas front on TPU), which is what makes
-    many-instance batching a throughput WIN instead of an HBM-temporary
-    loss (round-4 ``_32x`` regression); everything after the front is
-    batch-tolerant over the leading instance axis.
+    Unlike ``vmap(analysis)``, the afSTFT front-end runs as ONE batched
+    analysis over all n·nSH channels (ops.afstft_ri.analysis_ri_batched,
+    which never materialises the 10× frame stack); everything after the
+    front is batch-tolerant over the leading instance axis.
     """
     xc = w.conv_in @ x                             # (n, nSH, T)
-    (sre, sim), bank_st = ri.analysis_ri_batched(
-        cfg.afstft, state.bank, xc,
-        use_pallas=jax.default_backend() == "tpu")
+    (sre, sim), bank_st = ri.analysis_ri_batched(cfg.afstft, state.bank, xc)
     # batched front layout (n, nSH, H, nBands) → per-instance (nB, nSH, H)
     sre = sre.transpose(0, 3, 1, 2)
     sim = sim.transpose(0, 3, 1, 2)
@@ -298,7 +293,7 @@ def analysis_chunks(cfg: PowermapConfig, w: PowermapWeights,
     eigendecomposition — the dominant cost, ~2/3 of a MUSIC dispatch) then
     run ONCE batched over all K chunks (× n instances).  Numerically
     identical to K calls of ``analysis`` — the same eigh on the same
-    matrices, just batched.  This is TPU-native restructuring with no C
+    matrices, just batched.  This is a restructuring with no C
     counterpart (powermap.c processes one hopsize per call); cite:
     /root/reference/examples/src/powermap/powermap.c:298-338.
     """
@@ -308,9 +303,7 @@ def analysis_chunks(cfg: PowermapConfig, w: PowermapWeights,
         bank, Cre, Cim = carry
         xc = w.conv_in @ xk
         if batched:
-            (sre, sim), bank = ri.analysis_ri_batched(
-                cfg.afstft, bank, xc,
-                use_pallas=jax.default_backend() == "tpu")
+            (sre, sim), bank = ri.analysis_ri_batched(cfg.afstft, bank, xc)
             sre = sre.transpose(0, 3, 1, 2)
             sim = sim.transpose(0, 3, 1, 2)
         else:

@@ -340,7 +340,7 @@ def process(cfg: RoomBinauraliserConfig, w: RoomBinauraliserWeights,
     return y, state
 
 
-# -- stream-batched fast path (complex-free, fused pallas afSTFT kernels) ----
+# -- stream-batched fast path (complex-free) ---------------------------------
 
 def init_state_batched(cfg: RoomBinauraliserConfig, n_streams: int):
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
@@ -352,11 +352,10 @@ def process_ri_batched(cfg: RoomBinauraliserConfig,
                        w: RoomBinauraliserWeightsRI,
                        state, x: jax.Array,
                        src_gains: Optional[jax.Array] = None,
-                       ypr: Optional[jax.Array] = None,
-                       use_pallas: bool = True, interpret: bool = False):
+                       ypr: Optional[jax.Array] = None):
     """Stream-batched process: x (S, nSrc, T), src_gains (S, nSrc) or None,
     ypr (S, 3) or None → ((S, 2, T), state) on the split real/imaginary
-    pipeline with the fused pallas afSTFT kernels."""
+    pipeline (ops.afstft_ri.render_tf_matrix_ri)."""
     from spatial_audio_framework_tpu.ops import afstft_ri as ri
 
     S = x.shape[0]
@@ -370,7 +369,5 @@ def process_ri_batched(cfg: RoomBinauraliserConfig,
     # (S, nSrc, nBands, 2) → per-stream mixing (S, nBands, 2, nSrc)
     Hre = jnp.moveaxis(Hre, 1, -1)
     Him = jnp.moveaxis(Him, 1, -1)
-    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him,
-                                      use_pallas=use_pallas,
-                                      interpret=interpret)
+    y, state = ri.render_tf_matrix_ri(cfg.afstft, state, x, Hre, Him)
     return y / np.sqrt(cfg.n_sources), state

@@ -21,7 +21,7 @@ Full reference machinery:
   per-band azi/elev/colour/alpha display vectors with [minFreq, maxFreq]
   gating and per-band energy normalisation.
 
-TPU-native: split real/imaginary front-end (ops.afstft_ri) + real einsums —
+Split real/imaginary front-end (ops.afstft_ri) + real einsums —
 no complex64 anywhere, the sector coefficients are real by construction.
 """
 from __future__ import annotations
@@ -126,8 +126,7 @@ class SldoaWeights(NamedTuple):
     # nSH)) per distinct analysis order.  All bands in a group share one
     # coefficient matrix, so the sector-signal contraction is ONE
     # (maxSec·4, nSH) @ (nSH, nB·H) matmul per group instead of nB
-    # MXU-starved (36×16)@(16×H) batched matmuls — the difference between
-    # negative and positive 32-instance batch scaling on TPU
+    # tiny (36×16)@(16×H) batched matmuls
     order_groups: tuple
 
 
@@ -237,13 +236,10 @@ def analysis_batched(cfg: SldoaConfig, w: SldoaWeights, state: SldoaState,
                      x: jax.Array):
     """n independent sldoa instances in ONE dispatch: x (n, nSH, T) →
     (SldoaOutput with a leading n axis, state).  The afSTFT front-end runs
-    as ONE fused batched kernel over all n·nSH channels (Pallas on TPU);
-    the estimator is per-instance vmapped.  Same rationale as
-    powermap.analysis_batched (round-4 ``_32x`` batching regression)."""
+    as ONE batched analysis over all n·nSH channels; the estimator is
+    per-instance vmapped.  Same rationale as powermap.analysis_batched."""
     xc = w.conv_in @ x
-    (sre, sim), bank_st = ri.analysis_ri_batched(
-        cfg.afstft, state.bank, xc,
-        use_pallas=jax.default_backend() == "tpu")
+    (sre, sim), bank_st = ri.analysis_ri_batched(cfg.afstft, state.bank, xc)
     sre = sre.transpose(0, 3, 1, 2)    # (n, nB, nSH, H)
     sim = sim.transpose(0, 3, 1, 2)
     out, doa_xyz, energy = jax.vmap(
@@ -256,10 +252,9 @@ def _post_front(cfg: SldoaConfig, w: SldoaWeights, state: SldoaState,
     """Sector estimation + slot averaging from (nB, nSH, H) spectra;
     shared by the single-instance and batched entry points."""
     hp = _prec.HOT
-    # TPU layout: every H-scale tensor below is (…, nB·H) — a trailing
-    # 3-wide (xyz) or 4-wide (WXYZ) axis on a big tensor pads its
-    # (8, 128) tiles ~40×/2× and made the 32-instance batched dispatch
-    # bandwidth-bound on PADDING traffic, not useful bytes
+    # layout: every H-scale tensor below is (…, nB·H), with no trailing
+    # 3-wide (xyz) or 4-wide (WXYZ) axis on a big tensor (a narrow minor
+    # axis pads badly in tiled device layouts)
     nB, nsh, H = sre.shape
     S_ = w.sec_mask.shape[1]
     BH = nB * H

@@ -87,7 +87,7 @@ def formulate_M_and_Cr(Cx, Cy, Q, use_energy: bool = False, reg: float = 1e-2):
 def formulate_M_and_Cr_ri(Cx_ri, Cy_ri, Q_ri, use_energy: bool = False,
                           reg: float = 1e-2):
     """Complex formulate_M_and_Cr in split real/imaginary arithmetic, for
-    TPU paths that must avoid complex64.
+    device paths that avoid complex64.
 
     The [[A,-B],[B,A]] embedding is a *-ring homomorphism, and the CDF
     construction is invariant to the (unitary) choice of the Cx/Cy square
@@ -110,9 +110,9 @@ def formulate_M_and_Cr_ri(Cx_ri, Cy_ri, Q_ri, use_energy: bool = False,
 
 def _formulate_2x2_ri(Cx_ri, Cy_ri, Q_ri, use_energy: bool, reg: float):
     """The 2×2 case in closed form (herm_ri.herm_eig_2x2 / svd_2x2): the
-    generic path's three batched SVDs lower to iterative Jacobi sweeps on
-    TPU, which dominates the HADES/spreader synthesis cost for binaural
-    (Q = 2) deployments.  Same recipe as formulate_M_and_Cr."""
+    generic path's three batched SVDs lower to iterative sweeps, which
+    would dominate the HADES/spreader synthesis cost for binaural (Q = 2)
+    deployments.  Same recipe as formulate_M_and_Cr."""
     import jax.numpy as jnp
 
     from spatial_audio_framework_tpu.ops import herm_ri as H
@@ -168,11 +168,9 @@ def formulate_M_and_Cr_cmplx(Cx, Cy, Q, use_energy: bool = False,
 
 # ---------------------------------------------------------------------------
 # Entrywise 2×2 pipeline: the same closed forms with every 2×2 held as FOUR
-# scalar complex entries (batch dims on the TPU lane axis) instead of
-# (..., 2, 2) arrays.  The stacked layout wastes 255/256 of each (8, 128)
-# vector tile and forces relayouts between each tiny op — this block took
-# the HADES 32-instance mixing graph from 5.8 ms to the elementwise floor.
-# Numerics identical to _formulate_2x2_ri up to f32 op reordering.
+# scalar complex entries (batch dims on the minor axis) instead of
+# (..., 2, 2) arrays, so every step is one elementwise op over the batch
+# instead of many tiny 2×2 ops.  Numerics identical to _formulate_2x2_ri up to f32 op reordering.
 # ---------------------------------------------------------------------------
 
 def _s_mul(a, b):

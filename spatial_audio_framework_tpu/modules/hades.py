@@ -11,7 +11,7 @@
   sensors × diffuse EQ; stream-balance/EQ biasing; optional covariance
   matching via CDF4SAP (saf_hades_synthesis.c:308-470).
 
-TPU-native: the whole per-band chain — SCM, whitening, the eigh behind
+The whole per-band chain — SCM, whitening, the eigh behind
 COMEDIE/sdMUSIC, the beamformer solves and the CDF4SAP covariance matching —
 runs as ONE jitted computation batched over all 133 bands, in split
 real/imaginary arithmetic (ops.herm_ri; the reference's band loop at
@@ -223,7 +223,7 @@ class HadesAnalysis:
         """_cov_stats for the 2-mic path with the SCM in ENTRY form
         (((c00, c01), (c10, c11)) of (re, im) scalar arrays, bands last):
         whiten → closed-form eig → COMEDIE + sdMUSIC, all elementwise with
-        the batch dims on TPU lanes (see __init__'s _T_e/_qf_d)."""
+        the batch dims on the minor axis (see __init__'s _T_e/_qf_d)."""
         import jax.numpy as jnp
 
         from spatial_audio_framework_tpu.modules.cdf4sap import (
@@ -544,7 +544,7 @@ class HadesSynthesis:
 
 
 # ---------------------------------------------------------------------------
-# Fused device pipeline (TPU fast path)
+# Fused device pipeline (fast path)
 # ---------------------------------------------------------------------------
 
 class HadesPipeline:

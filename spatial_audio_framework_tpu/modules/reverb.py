@@ -11,7 +11,7 @@ The reference's streaming time-domain applicator
 per-source IIR filterbanks + crossfading, saf_reverb.c:297+) is provided two
 ways: (a) as *partitioned convolution of the rendered RIRs* with crossfade on
 scene updates — ``ops.matrix_conv.TVConv``, see ``models/ambi_roomsim.py`` —
-the MXU-preferred path; and (b) as a direct jit-compiled equivalent,
+the matmul-friendly path; and (b) as a direct jit-compiled equivalent,
 :class:`ImsTDApplicator`, which band-splits each source with the Favrot &
 Faller IIR filterbank, reads statically-padded per-image-source delay taps
 from a rolling buffer (one batched gather + one einsum per block, Lagrange

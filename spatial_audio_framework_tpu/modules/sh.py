@@ -1,4 +1,4 @@
-"""Spherical-harmonic core (TPU-native counterpart of ``saf_sh``).
+"""Spherical-harmonic core (counterpart of ``saf_sh``).
 
 Backend-agnostic (NumPy for design-time, jax.numpy for traced paths): all
 loops are static over SH order, so every function traces cleanly under jit

@@ -103,7 +103,7 @@ def generate_minnorm_map(Cx, Y_grid, n_sources: int, log_scale: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Activity maps in split real/imaginary arithmetic (TPU-safe: no complex64).
+# Activity maps in split real/imaginary arithmetic (no complex64).
 # Cx is an (A, B) = (re, im) pair; Y_grid is REAL SH steering (nSH, nGrid).
 # Same math as the complex versions above via the Hermitian real embedding
 # (ops.herm_ri); used by the powermap/sldoa/dirass device fast paths.

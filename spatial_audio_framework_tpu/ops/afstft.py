@@ -1,4 +1,4 @@
-"""Alias-free STFT filterbank (afSTFT), TPU-native.
+"""Alias-free STFT filterbank (afSTFT).
 
 Re-design of the reference afSTFT (``framework/resources/afSTFT/``,
 Juha Vilkamo's alias-free STFT as described in Vilkamo & Backstrom 2018):
@@ -19,10 +19,10 @@ the reference's own tolerances, ``test/src/test__resources.c:27-89``):
 * latency   = 12·hop (hybrid) / 9·hop; low-delay: 7·hop / 4·hop
   (``afSTFTlib.c:167-169``)
 
-TPU-first architecture: instead of the reference's one-hop-per-call mutable
+Architecture: instead of the reference's one-hop-per-call mutable
 handle, the filterbank is a pure function over a *block* of H hops with an
 explicit state pytree.  All hops in a block are processed as one batched
-window-multiply + fold (VPU) + batched rFFT, so arbitrarily many hops,
+window-multiply + fold + batched rFFT, so arbitrarily many hops,
 channels and streams can be fused into large dense ops (vmap over streams).
 """
 from __future__ import annotations
@@ -133,7 +133,7 @@ class AfSTFT:
         w_ana, _ = _windows(hop, self.low_delay)
         buf = jnp.concatenate([state.in_tail, x], axis=-1)
         # (n_ch, H, h_len) sliding windows (oldest sample first), built from
-        # hop-granular slices — compiles to cheap strided copies on TPU.
+        # hop-granular slices.
         hops = buf.reshape(n_ch, H + _TOTAL_HOPS - 1, hop)
         seg = jnp.stack([hops[:, k : k + H] for k in range(_TOTAL_HOPS)], axis=2)
         frames = seg.reshape(n_ch, H, h_len) * jnp.asarray(w_ana)
@@ -155,10 +155,9 @@ class AfSTFT:
 
         Y: (n_bands, n_ch, H) complex → (n_ch, H*hop) time-domain block.
         """
-        hop, h_len = self.hop, self.h_len
+        hop = self.hop
         _, w_syn = _windows(hop, self.low_delay)
         Y = Y.transpose(1, 2, 0)  # (n_ch, H, n_bands)
-        n_ch, H = Y.shape[:2]
         if self.hybrid:
             Y = _hybrid_inverse(Y)  # (n_ch, H, hop+1)
         if self.low_delay:
@@ -168,16 +167,35 @@ class AfSTFT:
                                dtype=Y.real.dtype)
             Y = Y * sign
         frame = irfft_op(Y, 2 * hop)  # 1/N-scaled
-        # Periodic extension × synthesis window; contribution of hop t spans
-        # output hops t..t+9 (afSTFT_internal.c:398-437).
-        contrib = jnp.tile(frame, (1, 1, _TOTAL_HOPS // 2)) * jnp.asarray(w_syn)
-        contrib = contrib.reshape(n_ch, H, _TOTAL_HOPS, hop)
-        acc = jnp.zeros((n_ch, H + _TOTAL_HOPS - 1, hop), frame.dtype)
-        for k in range(_TOTAL_HOPS):
-            acc = acc.at[:, k : k + H].add(contrib[:, :, k])
-        flat = acc.reshape(n_ch, (H + _TOTAL_HOPS - 1) * hop)
-        flat = flat.at[:, : h_len - hop].add(state.ola_tail)
-        return flat[:, : H * hop], state._replace(ola_tail=flat[:, H * hop :])
+        y, tail = overlap_add(frame, state.ola_tail, w_syn, hop)
+        return y, state._replace(ola_tail=tail)
+
+
+def overlap_add(frame: jax.Array, ola_tail: jax.Array, w_syn: np.ndarray,
+                hop: int):
+    """Synthesis window ⊗ overlap-add of (..., H, 2·hop) irDFT frames onto
+    the carried (..., 9·hop) tail → ((..., H·hop), new tail).
+
+    Periodic extension × synthesis window: hop k of the 10-hop window takes
+    the frame's (k % 2) half, and frame h's contribution lands on output hop
+    h+k (afSTFT_internal.c:398-437).  Each contribution is zero-padded into
+    place and summed (k ascending, then the tail), so the whole overlap-add
+    is one fusible elementwise expression.  Shared by the complex and the
+    split real/imaginary synthesis.
+    """
+    lead, H = frame.shape[:-2], frame.shape[-2]
+    nt = _TOTAL_HOPS - 1
+    w = jnp.asarray(w_syn, frame.dtype).reshape(_TOTAL_HOPS, hop)
+    keep = [(0, 0)] * len(lead)
+    acc = None
+    for k in range(_TOTAL_HOPS):
+        half = (k % 2) * hop
+        term = jnp.pad(frame[..., half:half + hop] * w[k],
+                       keep + [(k, nt - k), (0, 0)])
+        acc = term if acc is None else acc + term
+    flat = acc.reshape(lead + ((H + nt) * hop,))
+    flat = flat + jnp.pad(ola_tail, keep + [(0, H * hop)])
+    return flat[..., :H * hop], flat[..., H * hop:]
 
 
 class AfSTFTState(NamedTuple):

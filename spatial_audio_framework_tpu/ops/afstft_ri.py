@@ -2,15 +2,9 @@
 
 Numerically identical to :mod:`ops.afstft` (same prototype, hybrid stage and
 delays; afSTFT_internal.c:237-673) but every complex tensor is carried as an
-(re, im) pair of float32 arrays.  Two reasons to want this on TPU:
-
-* XLA lowers complex64 to interleaved real pairs anyway — expressing the
-  pipeline directly in real arithmetic gives the compiler plain f32 matmuls
-  and elementwise ops with no complex-semantics boxing, and opens the door to
-  mixed-precision variants.
-* Some experimental TPU runtimes have incomplete complex64 support on
-  auxiliary paths (e.g. device→host transfers); a complex-free graph keeps
-  the full streaming pipeline usable there.
+(re, im) pair of float32 arrays: expressing the pipeline directly in real
+arithmetic gives the compiler plain f32 matmuls and elementwise ops with no
+complex-semantics boxing.
 
 API mirrors AfSTFT: ``init_state_ri`` / ``analysis_ri`` / ``synthesis_ri``
 with spectra as (re, im) tuples in BANDS_CH_TIME layout.
@@ -18,7 +12,6 @@ with spectra as (re, im) tuples in BANDS_CH_TIME layout.
 from __future__ import annotations
 
 import functools as _functools
-import os
 from typing import NamedTuple, Optional, Tuple
 
 import jax
@@ -27,192 +20,20 @@ import numpy as np
 
 from spatial_audio_framework_tpu.ops.afstft import (_COEFF1, _COEFF2,
                                                     _TOTAL_HOPS, AfSTFT,
-                                                    _windows)
+                                                    _windows, overlap_add)
 from spatial_audio_framework_tpu.ops.fft import _rdft_mats
 from spatial_audio_framework_tpu.ops import precision as _prec
 
-# XLA's memory-space assignment keeps the fused synthesis kernels' FULL
-# outputs (y + OLA tail) in scoped VMEM when they are consumed inside the
-# same loop body; the scoped limit is 16 MiB on v5e, and exceeding it is a
-# hard compile error ("Ran out of memory in memory space vmem ... on
-# stack").  Dispatches whose output would exceed this budget are split on
-# the stream axis and lax.map'd through the fused path in groups that fit
-# (_render_fused_group_split); only unsplittable dispatches fall back to
-# the XLA einsum/reference path (identical numerics, ~4x slower for the
-# binaural configs).
-_VMEM_OUT_BUDGET = 12 * 2 ** 20
-
-
-def _synthesis_out_bytes(S: int, n_ch: int, H: int, hop: int) -> int:
-    """f32 bytes of (y, new_ola_tail) a fused synthesis kernel emits."""
-    return 4 * S * n_ch * (H + _TOTAL_HOPS - 1) * hop
-
-
-# The fused renderer's kernel-internal scoped-VMEM footprint (input
-# spectra tiles, pipeline-buffered by Mosaic) must also fit the 16 MiB
-# limit; it scales with blk·Cin·(H+6), so high SH orders (wide Cin) need
-# a smaller stream block or a time-split.  The model assumes pipeline
-# depth 3 — the worst observed (Mosaic used depth 2 for very large tiles
-# but depth 3 for deep grids, e.g. 18.78 MiB for Cin=36/H=32/blk=2 at 32
-# grid steps = 3 copies + extras) — and a 15.5 MiB budget keeps the
-# flagship (Cin=16, H=64, blk=2: 15.2 MiB modelled) on the fast block
-# size while leaving slack for the model's approximations.
-_VMEM_STEP_BUDGET = int(15.5 * 2 ** 20)
-
 # XLA-path analysis framing: largest 10×-overlapped frame stack worth
 # materialising before _fold_hops_ri switches to slice-accumulation (the
-# stack is faster for one instance, a 480 MiB HBM-temporary cliff for 32)
+# stack fuses into one reduce for a single instance but becomes a large
+# device-memory temporary for many vmapped instances).  Tuned on an earlier
+# accelerator; not measured on the H100.
 _FOLD_STACK_BYTES = 16 * 2 ** 20
 # analysis_ri: per-trace stack size below which the stacked fold + rDFT
-# matmul beats the conv formulation (tiny per-block calls, e.g. H=1);
-# kept small enough that a 32-instance vmap stays far off the cliff
+# matmul is used instead of the conv formulation (tiny per-block calls,
+# e.g. H=1).  Not measured on the H100.
 _ANA_STACK_SMALL = 2 ** 20
-
-
-def _fused_step_vmem_bytes(blk: int, cin: int, cout: int, H: int, hop: int,
-                           per_stream: bool = False) -> int:
-    """Conservative per-grid-step scoped-VMEM model for
-    pallas_afstft.render_decode_synthesis_ri: the 129-band lane dim pads
-    to 2·hop lanes and sublane dims to multiples of 8.  HBM-streamed
-    blocks are pipeline-buffered by Mosaic; depth 3 is assumed (the worst
-    measured: 17.07 MiB for cin=36/H=64/blk=1 ≈ 3 copies; 18.78 MiB for
-    cin=36/H=32/blk=2 over 32 grid steps; depth 2 was only seen for very
-    large tiles, e.g. 36.16 MiB for cin=64/H=64/blk=2)."""
-    def ru8(v):
-        return -(-v // 8) * 8
-
-    buf = 3                             # Mosaic pipeline depth (worst case)
-    nbp = 2 * hop                       # 129 lanes pad to 256
-    nt = _TOTAL_HOPS - 1
-    inb = buf * 2 * blk * cin * ru8(H + 6) * nbp * 4      # sre + sim
-    outb = buf * 2 * blk * cout * (ru8(H) + ru8(nt)) * hop * 4
-    tailb = buf * blk * cout * ru8(nt) * hop * 4
-    scr = blk * cout * ru8(H + nt) * hop * 4
-    taps = (buf * blk if per_stream else 1) * cin * cout * 4 * nbp * 4
-    mats = 2 * ru8(hop + 1) * 2 * hop * 4
-    return inb + outb + tailb + scr + taps + mats
-
-
-# Hop cap for ALL pallas dispatches: the analysis front / synthesis back
-# kernels' per-grid-step tiles scale with H (measured OOMs: the 32-ch
-# einsum path at H=256 → 19.2 MiB, H=1024 → 32.3 MiB), and Mosaic's
-# pipeline depth varies non-monotonically with tile size, so chunks past
-# this validated bound are time-split and scanned through the carried
-# state (exact — streaming is the design).
-_PALLAS_MAX_HOPS = 128
-
-
-def _full_render_vmem_bytes(blk: int, cin: int, cout: int, H: int, hop: int,
-                            per_stream: bool = False) -> int:
-    """Per-grid-step scoped-VMEM model for pallas_afstft.render_full_ri
-    (the ONE-kernel analysis⊗decode⊗synthesis path): the spectra values
-    (lane-padded to 2·hop) and the fold accumulators live entirely in VMEM
-    alongside the pipeline-buffered input/output tiles."""
-    def ru8(v):
-        return -(-v // 8) * 8
-
-    buf = 3                             # Mosaic pipeline depth (worst case)
-    He = H + 6
-    nbp = 2 * hop
-    nt = _TOTAL_HOPS - 1
-    inx = buf * blk * cin * ru8(H) * hop * 4
-    intail = buf * blk * cin * ru8(_TAIL_HOPS) * hop * 4
-    xx = blk * cin * ru8(H + _TAIL_HOPS) * hop * 4      # VMEM concat
-    accs = 2 * blk * cin * ru8(He) * hop * 4            # fold accumulators
-    # the 10 window-fold slices are misaligned on the sublane (hop) axis,
-    # so Mosaic materialises each as a shifted copy that stays live
-    # (measured: blk=2/cin=16/H=64 compiles to a 30.0 MiB stack vs 14 MiB
-    # modelled without this term)
-    fold = _TOTAL_HOPS * blk * cin * ru8(He) * hop * 4
-    spec = 2 * blk * cin * ru8(He) * nbp * 4            # sre + sim values
-    outs = buf * blk * cout * (ru8(H) + ru8(nt)) * hop * 4
-    otail = buf * blk * cout * ru8(nt) * hop * 4
-    scr = blk * cout * ru8(H + nt) * hop * 4
-    taps = (buf * blk if per_stream else 1) * cin * cout * 4 * nbp * 4
-    mats = (2 * 2 * hop * nbp + 2 * ru8(hop + 1) * nbp) * 4
-    return (inx + intail + xx + accs + fold + spec + outs + otail + scr
-            + taps + mats)
-
-
-def _fit_full_render_block(cin: int, cout: int, H: int, hop: int,
-                           per_stream: bool):
-    """Largest streams-per-grid-step (2 or 1) for the one-kernel fused
-    renderer; None when even blk=1 exceeds the VMEM budget."""
-    if H > _PALLAS_MAX_HOPS:
-        return None
-    for blk in (2, 1):
-        if (_full_render_vmem_bytes(blk, cin, cout, H, hop, per_stream)
-                <= _VMEM_STEP_BUDGET):
-            return blk
-    return None
-
-
-def _fit_render_block(cin: int, cout: int, H: int, hop: int,
-                      per_stream: bool):
-    """Largest streams-per-grid-step (2 or 1) whose kernel footprint fits;
-    None when even blk=1 is too wide (the caller then splits in time)."""
-    from spatial_audio_framework_tpu.ops.pallas_afstft import BLK_S
-    if H > _PALLAS_MAX_HOPS:
-        return None
-    for blk in (BLK_S, 1):
-        if (_fused_step_vmem_bytes(blk, cin, cout, H, hop, per_stream)
-                <= _VMEM_STEP_BUDGET):
-            return blk
-    return None
-
-
-def _fused_dg_step_vmem_bytes(blk: int, cin: int, cout: int, H: int,
-                              hop: int, per_stream: bool = False) -> int:
-    """Per-grid-step scoped-VMEM model for the (d, g)-pair render kernel
-    (pallas_afstft.render_decode_synthesis_dg_ri): like
-    :func:`_fused_step_vmem_bytes` but with FOUR H-hop spectra inputs
-    instead of two (H+6)-hop ones, and no hybrid-slice copies."""
-    def ru8(v):
-        return -(-v // 8) * 8
-
-    buf = 3
-    nbp = 2 * hop
-    nt = _TOTAL_HOPS - 1
-    # d_re/d_im at nb lanes (pad 2·hop) + g_re/g_im at 16 lanes (pad 128)
-    inb = buf * blk * cin * ru8(H) * (2 * nbp + 2 * hop) * 4
-    outb = buf * 2 * blk * cout * (ru8(H) + ru8(nt)) * hop * 4
-    tailb = buf * blk * cout * ru8(nt) * hop * 4
-    scr = blk * cout * ru8(H + nt) * hop * 4
-    taps = (buf * blk if per_stream else 1) * cin * cout * 4 * nbp * 4
-    mats = 2 * ru8(hop + 1) * 2 * hop * 4
-    return inb + outb + tailb + scr + taps + mats
-
-
-def _fit_render_dg_block(cin: int, cout: int, H: int, hop: int,
-                         per_stream: bool):
-    """blk for the (d, g) render kernel; None = doesn't fit at blk=1."""
-    from spatial_audio_framework_tpu.ops.pallas_afstft import BLK_S
-    if H > _PALLAS_MAX_HOPS:
-        return None
-    for blk in (BLK_S, 1):
-        if (_fused_dg_step_vmem_bytes(blk, cin, cout, H, hop, per_stream)
-                <= _VMEM_STEP_BUDGET):
-            return blk
-    return None
-
-
-def _time_split_hops(H: int) -> int:
-    """Largest divisor of H within the pallas hop cap (1 always divides)."""
-    return next(h for h in range(min(H, _PALLAS_MAX_HOPS), 0, -1)
-                if H % h == 0)
-
-
-def _fit_group_count(S: int, n_ch: int, H: int, hop: int):
-    """Smallest group count that divides the stream axis S and whose
-    per-group synthesis output fits the VMEM budget; None if no bounded
-    split fits (degenerate shapes take the XLA path instead of a long
-    sequential map)."""
-    for g in range(2, min(S, 32) + 1):
-        if (S % g == 0
-                and _synthesis_out_bytes(S // g, n_ch, H, hop)
-                <= _VMEM_OUT_BUDGET):
-            return g
-    return None
 
 
 class AfSTFTStateRI(NamedTuple):
@@ -240,9 +61,8 @@ def _ana_conv_kernel(hop: int, low_delay: bool) -> np.ndarray:
     sre[c,h,f] = Σ_k Σ_m hops[c,h+k,m]·w[k·hop+m]·C[(k%2)·hop+m,f], the
     same sum the frame-stack → fold → matmul pipeline evaluates (only the
     reduction association differs, ~1 ulp·√(2·hop)).  ~4.8× the FLOPs of
-    fold+rDFT, but convs hit the MXU without materialising im2col frames,
-    so it is fast at one instance AND at 32 vmapped instances (the stack
-    formulation's HBM-temporary cliff; see _fold_hops_ri)."""
+    fold+rDFT, but the conv runs without materialising im2col frames at any
+    batch size, including many vmapped instances (see _fold_hops_ri)."""
     w_ana, _ = _windows(hop, low_delay)
     C, S, _, _ = _rdft_mats(2 * hop)
     CS = np.concatenate([C, S], axis=1).astype(np.float32)
@@ -264,15 +84,13 @@ def _fold_hops_ri(hops: jax.Array, n_frames: int, hop: int,
     slice-multiply-adds over (..., n_frames, hop) temporaries instead of a
     10× frame stack.  Summation runs p-ascending exactly like the previous
     ``reshape(.., 5, 2·hop).sum(axis=2)`` formulation (only the reduction
-    association can differ, ~1 ulp).  This is what keeps many-instance
-    vmapped analysers (powermap/sldoa/hades ``_32x``) off the HBM-temporary
-    cliff: the 10× stack cost 32 instances ≈ 480 MiB of HBM temporaries
-    per dispatch (round-4 ``memory.temp_mb`` diagnosis).
+    association can differ, ~1 ulp).  This keeps many-instance vmapped
+    analysers (powermap/sldoa/hades) from materialising a 10× stack of
+    their input as a device-memory temporary.
 
-    Below :data:`_FOLD_STACK_BYTES` the stacked formulation is kept — at
-    one-instance scale the 10× stack is ~5 MiB, fuses into a single
-    reduce, and measured 10-30 % faster than the accumulation form; the
-    two only differ in reduction association (~1 ulp).
+    Below :data:`_FOLD_STACK_BYTES` the stacked formulation is kept: at
+    one-instance scale the stack is a few MiB and fuses into a single
+    reduce; the two only differ in reduction association (~1 ulp).
 
     hops: (..., n_frames + _TOTAL_HOPS - 1, hop); w: (_TOTAL_HOPS·hop,).
     Returns (..., n_frames, 2·hop).
@@ -281,8 +99,7 @@ def _fold_hops_ri(hops: jax.Array, n_frames: int, hop: int,
                    * n_frames * _TOTAL_HOPS * hop)
     if stack_bytes <= _FOLD_STACK_BYTES:
         # small batch (e.g. one analyser instance): the stacked form fuses
-        # into one reduce and measured ~10-30 % faster than ten
-        # slice-multiply-adds on TPU; the stack is only ~5 MiB here
+        # into one reduce
         seg = jnp.stack([hops[..., k:k + n_frames, :]
                          for k in range(_TOTAL_HOPS)], axis=-2)
         frames = seg.reshape(hops.shape[:-2]
@@ -349,14 +166,13 @@ def _hybrid_forward_ri_packed(fre, fim, H: int):
     return jnp.concatenate(seg_re + seg_im, axis=-1)
 
 
-# -- natively stream-batched path (used with the pallas front-end) -----------
+# -- natively stream-batched path ---------------------------------------------
 
 class AfSTFTStateBatched(NamedTuple):
     """State for the (n_streams, ...) batched pipeline.
 
     in_tail carries 15 hops (9 for framing + 6 so the hybrid stage's history
-    spectra are recomputed in the fused kernel instead of being carried —
-    this removes the hybrid-tail concat traffic from the per-block path)."""
+    spectra are recomputed from the input instead of being carried)."""
     in_tail: jax.Array      # (S, n_ch_in, (10-1+6)*hop)
     ola_tail: jax.Array     # (S, n_ch_out, h_len - hop)
 
@@ -374,89 +190,31 @@ def init_state_batched(bank: AfSTFT, n_streams: int, n_ch_in: int,
 
 
 def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, x: jax.Array,
-                        use_pallas: bool = True, interpret: bool = False,
                         packed: bool = False,
-                        mxu_mode: Optional[str] = None):
-    """x: (S, n_ch, H*hop) → ((re, im) each (S, n_ch, H, n_bands), state).
+                        precision: Optional[str] = None):
+    """x: (S, n_ch, H*hop) → ((re, im) each (S, n_ch, H, n_bands), state),
+    or with ``packed`` one (S, n_ch, H, 2·n_bands) [re | im] tensor.
 
-    With use_pallas, the framing⊗window⊗fold⊗rDFT front-end runs as one
-    fused TPU kernel over the flattened (S·n_ch) batch
-    (ops.pallas_afstft.analysis_front_ri): input read from HBM once instead
-    of materialising the 10×-overlapped frame tensor.  H+6 spectral hops are
-    produced per block (6 recomputed from the tail) so the hybrid stage
-    slices the kernel output directly, with no carried spectral state.
-    ``mxu_mode``: per-call MXU matmul precision (ops/precision.py; None =
-    the process default) for both the kernel and the XLA reference path.
+    Framing ⊗ window ⊗ fold runs as slice-accumulation over the hop axis
+    (no 10×-overlapped frame stack) and the rDFT as one matmul; H+6 spectral
+    hops are produced per block (6 recomputed from the carried tail) so the
+    hybrid stage needs no carried spectral state.  ``precision``: matmul
+    precision mode (ops/precision.py; None = the process default).
     """
-    from spatial_audio_framework_tpu.ops.pallas_afstft import analysis_front_ri
-
-    mxu_mode = _prec.resolve_mode(mxu_mode)
     hop = bank.hop
-    # every pallas kernel in this front-end hard-codes hop=128 (the
-    # production afSTFT hop); other hops take the XLA reference path
-    use_pallas = use_pallas and hop == 128
     S, n_ch = x.shape[:2]
     H = x.shape[2] // hop
-    if use_pallas and H > _PALLAS_MAX_HOPS:
-        # chunks past the kernel's validated hop bound are scanned through
-        # the carried state in sub-chunks (exact; see _PALLAS_MAX_HOPS)
-        h_sub = _time_split_hops(H)
-        xk = jnp.moveaxis(x.reshape(S, n_ch, H // h_sub, h_sub * hop), 2, 0)
-
-        def body(st, xc):
-            spec, st = analysis_ri_batched(bank, st, xc, use_pallas=True,
-                                           interpret=interpret,
-                                           packed=packed, mxu_mode=mxu_mode)
-            return st, spec
-
-        state, specs = jax.lax.scan(body, state, xk)
-
-        def cat(parts):  # (n, S, C, h_sub, nb) stacked -> (S, C, H, nb)
-            n, s_, c_, h_, nb_ = parts.shape
-            return jnp.moveaxis(parts, 0, 2).reshape(s_, c_, n * h_, nb_)
-
-        if packed:
-            return cat(specs), state
-        return (cat(specs[0]), cat(specs[1])), state
-    if use_pallas:
-        # tail and block stay separate — concatenated in VMEM by the kernel
-        sre, sim = analysis_front_ri(
-            state.in_tail.reshape(S * n_ch, -1),
-            x.reshape(S * n_ch, -1),
-            low_delay=bank.low_delay, interpret=interpret,
-            mxu_mode=mxu_mode)                               # (B, H+6, 129)
-        if H >= _TAIL_HOPS:
-            new_in_tail = x[..., (H - _TAIL_HOPS) * hop:]
-        else:
-            new_in_tail = jnp.concatenate(
-                [state.in_tail[..., H * hop:], x], axis=-1)
-        sre = sre.reshape(S, n_ch, H + 6, hop + 1)
-        sim = sim.reshape(S, n_ch, H + 6, hop + 1)
-        state = state._replace(in_tail=new_in_tail)
-        if packed:
-            if not bank.hybrid:
-                return jnp.concatenate([sre[:, :, 6:], sim[:, :, 6:]],
-                                       axis=-1), state
-            return _hybrid_forward_ri_packed(sre, sim, H), state
-        if not bank.hybrid:
-            return (sre[:, :, 6:], sim[:, :, 6:]), state
-        ore, oim = _hybrid_forward_ri(sre, sim, H)           # (S,C,H,133)
-        return (ore, oim), state
-    # XLA reference path (same math as the kernel)
     buf = jnp.concatenate([state.in_tail, x], axis=-1)   # (S,C,(H+15)·hop)
-    new_in_tail = buf[..., H * hop:]
-    flat = buf.reshape(S * n_ch, -1)
     w_ana, _ = _windows(hop, bank.low_delay)
     C, Smat, _, _ = _rdft_mats(2 * hop)
-    He = H + 6
-    hops = flat.reshape(S * n_ch, H + _TAIL_HOPS, hop)
-    folded = _fold_hops_ri(hops, He, hop, jnp.asarray(w_ana))
-    xprec = _prec.to_xla(mxu_mode)
+    hops = buf.reshape(S * n_ch, H + _TAIL_HOPS, hop)
+    folded = _fold_hops_ri(hops, H + 6, hop, jnp.asarray(w_ana))
+    xprec = _prec.to_xla(_prec.resolve_mode(precision))
     sre = jnp.matmul(folded, jnp.asarray(C), precision=xprec)
     sim = jnp.matmul(folded, jnp.asarray(Smat), precision=xprec)
     sre = sre.reshape(S, n_ch, H + 6, hop + 1)
     sim = sim.reshape(S, n_ch, H + 6, hop + 1)
-    state = state._replace(in_tail=new_in_tail)
+    state = state._replace(in_tail=buf[..., H * hop:])
     if packed:
         if not bank.hybrid:
             return jnp.concatenate([sre[:, :, 6:], sim[:, :, 6:]],
@@ -469,98 +227,22 @@ def analysis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, x: jax.Array,
 
 
 def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
-                         use_pallas: bool = True, interpret: bool = False,
                          packed: bool = False,
-                         mxu_mode: Optional[str] = None):
+                         precision: Optional[str] = None):
     """Y: (re, im) each (S, n_ch, H, n_bands) — or, with packed=True, one
     (S, n_ch, H, 2·n_bands) [re | im] tensor — → ((S, n_ch, H*hop), state).
 
-    With use_pallas, hybrid-inverse ⊗ irDFT ⊗ window ⊗ overlap-add run as one
-    fused TPU kernel (ops.pallas_afstft.synthesis_back_ri).  ``mxu_mode``:
-    per-call MXU matmul precision (None = the process default)."""
-    mxu_mode = _prec.resolve_mode(mxu_mode)
+    Hybrid-inverse ⊗ irDFT as matmuls, then window ⊗ overlap-add
+    (:func:`ops.afstft.overlap_add`).  ``precision``: matmul precision mode (None =
+    the process default)."""
     if packed:
         nb = Y.shape[-1] // 2
         Yre, Yim = Y[..., :nb], Y[..., nb:]
     else:
         Yre, Yim = Y
-    hop, h_len = bank.hop, bank.h_len
-    S, n_ch, H = (Y.shape[:3] if packed else Yre.shape[:3])
-    use_pallas = use_pallas and hop == 128  # kernels hard-code hop=128
-    if use_pallas and H > _PALLAS_MAX_HOPS:
-        # chunks past the kernel's validated hop bound are scanned through
-        # the OLA carry in sub-chunks (exact; see _PALLAS_MAX_HOPS)
-        h_sub = _time_split_hops(H)
-        n = H // h_sub
-
-        def split_h(a):  # (S, C, H, nb) -> (n, S, C, h_sub, nb)
-            return jnp.moveaxis(
-                a.reshape(S, n_ch, n, h_sub, a.shape[-1]), 2, 0)
-
-        Yk = split_h(Y) if packed else (split_h(Yre), split_h(Yim))
-
-        def body(st, yc):
-            yy, st = synthesis_ri_batched(bank, st, yc, use_pallas=True,
-                                          interpret=interpret, packed=packed,
-                                          mxu_mode=mxu_mode)
-            return st, yy
-
-        state, ys = jax.lax.scan(body, state, Yk)
-        y = jnp.moveaxis(ys, 0, 2).reshape(S, n_ch, H * hop)
-        return y, state
-    if (use_pallas
-            and _synthesis_out_bytes(S, n_ch, H, hop) > _VMEM_OUT_BUDGET):
-        # the fused kernel's (y, tail) output is scoped-VMEM-resident:
-        # oversized batches are stream-group-split and lax.map'd through
-        # the pallas path, same as _render_fused_group_split (measured:
-        # keeps e.g. the 16-stream 25-out array2sh synthesis off the
-        # slower XLA path)
-        g = _fit_group_count(S, n_ch, H, hop)
-        if g is None:
-            use_pallas = False
-        else:
-            Sg = S // g
-
-            def regroup(a):
-                return a.reshape((g, Sg) + a.shape[1:])
-
-            Yg = (regroup(Y) if packed
-                  else (regroup(Yre), regroup(Yim)))
-            stg = AfSTFTStateBatched(in_tail=regroup(state.in_tail),
-                                     ola_tail=regroup(state.ola_tail))
-
-            def body(args):
-                yg, sg = args
-                return synthesis_ri_batched(bank, sg, yg, use_pallas=True,
-                                            interpret=interpret,
-                                            packed=packed, mxu_mode=mxu_mode)
-
-            y, nst = jax.lax.map(body, (Yg, stg))
-
-            def flatten(a):
-                return a.reshape((S,) + a.shape[2:])
-
-            return flatten(y), AfSTFTStateBatched(
-                in_tail=flatten(nst.in_tail),
-                ola_tail=flatten(nst.ola_tail))
-    if use_pallas:
-        from spatial_audio_framework_tpu.ops.pallas_afstft import \
-            synthesis_back_ri
-        spec = (Y if packed
-                else jnp.concatenate([Yre, Yim], axis=-1)).reshape(
-            S * n_ch, H, -1)
-        tail = state.ola_tail.reshape(S * n_ch, _TOTAL_HOPS - 1, hop)
-        y, new_tail = synthesis_back_ri(spec, tail,
-                                        low_delay=bank.low_delay,
-                                        hybrid=bank.hybrid,
-                                        interpret=interpret,
-                                        mxu_mode=mxu_mode)
-        return (y.reshape(S, n_ch, H * hop),
-                state._replace(ola_tail=new_tail.reshape(S, n_ch,
-                                                         h_len - hop)))
+    hop = bank.hop
     _, w_syn = _windows(hop, bank.low_delay)
     _, _, A, B = _rdft_mats(2 * hop)
-    S, n_ch, H = Yre.shape[:3]
     if bank.hybrid:
         Yre = _hybrid_inverse_ri(Yre)
         Yim = _hybrid_inverse_ri(Yim)
@@ -569,308 +251,65 @@ def synthesis_ri_batched(bank: AfSTFT, state: AfSTFTStateBatched, Y,
                            jnp.float32)
         Yre = Yre * sign
         Yim = Yim * sign
-    xprec = _prec.to_xla(mxu_mode)
+    xprec = _prec.to_xla(_prec.resolve_mode(precision))
     frame = (jnp.matmul(Yre, jnp.asarray(A), precision=xprec)
              + jnp.matmul(Yim, jnp.asarray(B), precision=xprec))
-    # tile-free overlap-add (bitwise-identical; see synthesis_ri twin)
-    w_syn_j = jnp.asarray(w_syn)
-    acc = jnp.zeros((S, n_ch, H + _TOTAL_HOPS - 1, hop), frame.dtype)
-    for k in range(_TOTAL_HOPS):
-        half = (k % 2) * hop
-        acc = acc.at[:, :, k:k + H].add(
-            frame[..., half:half + hop] * w_syn_j[k * hop:(k + 1) * hop])
-    flat = acc.reshape(S, n_ch, (H + _TOTAL_HOPS - 1) * hop)
-    flat = flat.at[..., :h_len - hop].add(state.ola_tail)
-    return flat[..., :H * hop], state._replace(ola_tail=flat[..., H * hop:])
+    y, tail = overlap_add(frame, state.ola_tail, w_syn, hop)
+    return y, state._replace(ola_tail=tail)
 
 
 def render_tf_matrix_ri(bank: AfSTFT, state: AfSTFTStateBatched, x: jax.Array,
                         Mre: jax.Array, Mim: Optional[jax.Array] = None,
-                        use_pallas: bool = True, interpret: bool = False,
-                        mxu_mode: Optional[str] = None):
-    """Generic TF-domain matrix renderer on the batched RI fast path:
-    afSTFT analysis → per-band mixing matrix → afSTFT synthesis, the shape
-    shared by ambi_bin / binauraliser / roombinauraliser / ambi_dec.
+                        precision: Optional[str] = None):
+    """Generic TF-domain matrix renderer on the batched RI path: afSTFT
+    analysis → per-band mixing matrix → afSTFT synthesis, the shape shared
+    by ambi_bin / binauraliser / roombinauraliser / ambi_dec / panner /
+    array2sh.
 
     x: (S, Cin, T); M: (B, Cout, Cin) shared across streams or
     (S, B, Cout, Cin) per-stream (e.g. per-stream interpolated HRTFs);
     Mim None ⇒ real mixing matrix.  → ((S, Cout, T), state).
 
-    When the channel product is small (Cout·Cin ≤ 128, i.e. the binaural /
-    few-speaker renderers) the call is served by the fully-fused kernel
-    path (:func:`render_tf_matrix_fused`) — identical numerics, no packed
-    spectrum in HBM and no per-band einsum.  Larger mixing matrices (where
-    the per-band contraction belongs on the MXU) keep the einsum path.
+    Plain XLA on every backend: analysis, one einsum over the packed
+    spectrum for all bands, synthesis.  ``precision``: matmul precision
+    mode (ops/precision.py; None = the process default).
     """
-    mxu_mode = _prec.resolve_mode(mxu_mode)
-    cout, cin = Mre.shape[-2], Mre.shape[-1]
-    # The fused kernels hard-code hop=128 (the production afSTFT hop); any
-    # other hop must take the generic einsum path rather than produce garbage.
-    # Dispatches whose output exceeds the VMEM budget are stream-group-split
-    # inside render_tf_matrix_fused, so no byte check is needed here.
-    if use_pallas and cout * cin <= 128 and bank.hop == 128:
-        return render_tf_matrix_fused(bank, state, x, Mre, Mim,
-                                      use_pallas=use_pallas,
-                                      interpret=interpret,
-                                      mxu_mode=mxu_mode)
-    spec_p, state = analysis_ri_batched(bank, state, x, use_pallas=use_pallas,
-                                        interpret=interpret, packed=True,
-                                        mxu_mode=mxu_mode)
+    cout = Mre.shape[-2]
+    spec_p, state = analysis_ri_batched(bank, state, x, packed=True,
+                                        precision=precision)
     S, cin, H, nb2 = spec_p.shape
     B = nb2 // 2
     spec5 = spec_p.reshape(S, cin, H, 2, B)
     per_stream = Mre.ndim == 4
-    xprec = _prec.to_xla(mxu_mode)
+    xprec = _prec.to_xla(_prec.resolve_mode(precision))
     if Mim is None:
         eq = "zbes,zshjb->zehjb" if per_stream else "bes,zshjb->zehjb"
         out = jnp.einsum(eq, Mre, spec5, precision=xprec)
-        cout = Mre.shape[-2]
-        out_p = out.reshape(S, cout, H, nb2)
     else:
         M4 = jnp.stack([jnp.stack([Mre, -Mim], axis=-1),
                         jnp.stack([Mim, Mre], axis=-1)], axis=-2)
         eq = "zbesij,zshjb->zehib" if per_stream else "besij,zshjb->zehib"
         out = jnp.einsum(eq, M4, spec5, precision=xprec)
-        cout = Mre.shape[-2]
-        out_p = out.reshape(S, cout, H, nb2)
-    return synthesis_ri_batched(bank, state, out_p, use_pallas=use_pallas,
-                                interpret=interpret, packed=True,
-                                mxu_mode=mxu_mode)
-
-
-def _render_fused_group_split(bank: AfSTFT, state: AfSTFTStateBatched,
-                              x: jax.Array, Mre: jax.Array,
-                              Mim: Optional[jax.Array], interpret: bool,
-                              mxu_mode: Optional[str] = None):
-    """Serve an over-VMEM-budget fused render as a lax.map over stream
-    groups, each of which fits the budget.  Returns None when no equal
-    split of the stream axis fits (the caller then takes the einsum path).
-    """
-    S = x.shape[0]
-    cout = Mre.shape[-2]
-    H = x.shape[2] // bank.hop
-    g = _fit_group_count(S, cout, H, bank.hop)
-    if g is None:
-        return None
-    Sg = S // g
-
-    def regroup(a):
-        return a.reshape((g, Sg) + a.shape[1:])
-
-    per_stream = Mre.ndim == 4
-    if Mim is None:
-        Mim = jnp.zeros_like(Mre)
-    xs = (regroup(x),
-          AfSTFTStateBatched(in_tail=regroup(state.in_tail),
-                             ola_tail=regroup(state.ola_tail)))
-    if per_stream:
-        xs = xs + (regroup(Mre), regroup(Mim))
-
-        def body(args):
-            xg, stg, mre_g, mim_g = args
-            return render_tf_matrix_fused(bank, stg, xg, mre_g, mim_g,
-                                          interpret=interpret,
-                                          mxu_mode=mxu_mode)
-    else:
-
-        def body(args):
-            xg, stg = args
-            return render_tf_matrix_fused(bank, stg, xg, Mre, Mim,
-                                          interpret=interpret,
-                                          mxu_mode=mxu_mode)
-
-    y, nst = jax.lax.map(body, xs)
-
-    def flatten(a):
-        return a.reshape((S,) + a.shape[2:])
-
-    return flatten(y), AfSTFTStateBatched(in_tail=flatten(nst.in_tail),
-                                          ola_tail=flatten(nst.ola_tail))
-
-
-def render_tf_matrix_fused(bank: AfSTFT, state: AfSTFTStateBatched,
-                           x: jax.Array, Mre: jax.Array,
-                           Mim: Optional[jax.Array] = None,
-                           use_pallas: bool = True, interpret: bool = False,
-                           mxu_mode: Optional[str] = None):
-    """Fully-fused TF-domain matrix renderer: one pallas kernel for the
-    analysis front (framing⊗window⊗fold⊗rDFT) and one for everything after
-    it (hybrid⊗decode⊗hybrid-inverse⊗irDFT⊗overlap-add, see
-    ops.pallas_afstft.render_decode_synthesis_ri) — the hybrid stage and the
-    per-band mixing matrix collapse into uniform-band decode taps, so the
-    packed spectrum never round-trips HBM and no XLA einsum runs per block.
-
-    Same contract as :func:`render_tf_matrix_ri`; numerically equivalent
-    (tests/test_afstft_ri.py).  With ``use_pallas=False`` it simply calls
-    the XLA reference path.
-    """
-    mxu_mode = _prec.resolve_mode(mxu_mode)
-    if not use_pallas or bank.hop != 128:
-        # the fused kernels hard-code hop=128; other hops take the generic
-        # einsum path rather than fail/garbage
-        return render_tf_matrix_ri(bank, state, x, Mre, Mim,
-                                   use_pallas=False, interpret=interpret,
-                                   mxu_mode=mxu_mode)
-    if _synthesis_out_bytes(x.shape[0], Mre.shape[-2],
-                            x.shape[2] // bank.hop,
-                            bank.hop) > _VMEM_OUT_BUDGET:
-        # the fused synthesis kernel's whole (y, tail) output is
-        # VMEM-resident (see _VMEM_OUT_BUDGET).  Oversized batches are
-        # split on the stream axis and lax.map'd through the fused path —
-        # each group's output fits the budget and the stacked result lives
-        # in HBM, keeping the ~4x fused-vs-einsum advantage at any batch
-        # size (measured: 256 order-3 streams 165 ms -> ~43 ms/dispatch).
-        res = _render_fused_group_split(bank, state, x, Mre, Mim, interpret,
-                                        mxu_mode=mxu_mode)
-        if res is not None:
-            return res
-        # no stream-group split fits (e.g. a single enormous stream):
-        # fall back to the einsum path
-        return render_tf_matrix_ri(bank, state, x, Mre, Mim,
-                                   use_pallas=False, interpret=interpret,
-                                   mxu_mode=mxu_mode)
-    from spatial_audio_framework_tpu.ops.pallas_afstft import (
-        analysis_front_ri, decode_taps, render_decode_synthesis_ri,
-        render_full_ri)
-
-    hop = bank.hop
-    S, cin = x.shape[:2]
-    H = x.shape[2] // hop
-    cout_m = Mre.shape[-2]
-    per_stream_m = Mre.ndim == 4
-    # ONE-kernel path: the uniform-band spectra never round-trip HBM (the
-    # two-kernel pipeline writes + re-reads 2·S·cin·(H+6)·129 f32 between
-    # the kernels — 3-4x the flagship's algorithmic-floor traffic).
-    # MEASURED SLOWER on v5e and therefore opt-in (SAF_TPU_FULL_FUSION=1):
-    # the VMEM stack forces blk=1 and the 10 misaligned fold slices
-    # materialise per step, costing more than the ~0.2 ms/chunk of HBM
-    # round-trip it saves (flagship 13.7 vs 7.9 ms/dispatch, 2026-08-20;
-    # docs/TPU_RUNTIME_NOTES.md "full-fusion experiment").  Kept because
-    # it is the right structure if a future toolchain lifts the scoped-
-    # VMEM limit or folds without sublane-shift copies.
-    # round-5 flip: the hop-major rewrite made the ONE-kernel renderer the
-    # fastest path wherever it fits (3×-interleaved same-process A/B:
-    # flagship 5.33 → 5.20 ms, 256-stream group-split 31.0 → 27.4 ms —
-    # +12.8%), so it is now the DEFAULT; SAF_TPU_FULL_FUSION=0 restores
-    # the two-kernel (d, g) pipeline
-    blk_full = (_fit_full_render_block(cin, cout_m, H, hop, per_stream_m)
-                if os.environ.get("SAF_TPU_FULL_FUSION", "1") not in ("0",)
-                else None)
-    if blk_full is not None:
-        if Mim is None:
-            Mim = jnp.zeros_like(Mre)
-        taps = decode_taps(Mre, Mim, hybrid=bank.hybrid)
-        tail_ola = state.ola_tail.reshape(S, cout_m, _TOTAL_HOPS - 1, hop)
-        y, new_tail = render_full_ri(
-            state.in_tail, x, tail_ola, taps, low_delay=bank.low_delay,
-            hybrid=bank.hybrid, per_stream=per_stream_m,
-            interpret=interpret, blk=blk_full, mxu_mode=mxu_mode)
-        if H >= _TAIL_HOPS:
-            new_in_tail = x[..., (H - _TAIL_HOPS) * hop:]
-        else:
-            new_in_tail = jnp.concatenate(
-                [state.in_tail[..., H * hop:], x], axis=-1)
-        return y, AfSTFTStateBatched(
-            in_tail=new_in_tail,
-            ola_tail=new_tail.reshape(S, cout_m, -1))
-    dg_ok = (bank.hybrid
-             and os.environ.get("SAF_TPU_DG_RENDER", "1") not in ("0",))
-    blk = _fit_render_block(cin, cout_m, H, hop, per_stream_m)
-    blk_dg = (_fit_render_dg_block(cin, cout_m, H, hop, per_stream_m)
-              if dg_ok else None)
-    if blk is None and blk_dg is None:
-        # even one stream per grid step is too wide (high SH order ×
-        # long chunk): split the chunk in TIME and scan sub-chunks —
-        # exact, because the state carry IS the streaming design.  The
-        # (d, g) kernels' leaner footprint usually admits a LARGER
-        # sub-chunk (fewer dispatches: order-7/64-streams runs H=16
-        # sub-chunks instead of 8), so prefer their fit when available
-        def _sub_fits(h):
-            if dg_ok and _fit_render_dg_block(cin, cout_m, h, hop,
-                                              per_stream_m) is not None:
-                return True
-            return _fit_render_block(cin, cout_m, h, hop,
-                                     per_stream_m) is not None
-
-        h_sub = next((h for h in range(H - 1, 0, -1)
-                      if H % h == 0 and _sub_fits(h)), None)
-        if h_sub is None:
-            return render_tf_matrix_ri(bank, state, x, Mre, Mim,
-                                       use_pallas=False, interpret=interpret,
-                                       mxu_mode=mxu_mode)
-        xk = jnp.moveaxis(
-            x.reshape(S, cin, H // h_sub, h_sub * hop), 2, 0)
-
-        def body(st, xc):
-            yc, st = render_tf_matrix_fused(bank, st, xc, Mre, Mim,
-                                            interpret=interpret,
-                                            mxu_mode=mxu_mode)
-            return st, yc
-
-        state, ys = jax.lax.scan(body, state, xk)
-        y = jnp.moveaxis(ys, 0, 2).reshape(S, ys.shape[2], H * hop)
-        return y, state
-    if H >= _TAIL_HOPS:
-        new_in_tail = x[..., (H - _TAIL_HOPS) * hop:]
-    else:
-        new_in_tail = jnp.concatenate(
-            [state.in_tail[..., H * hop:], x], axis=-1)
-    if Mim is None:
-        Mim = jnp.zeros_like(Mre)
-    taps = decode_taps(Mre, Mim, hybrid=bank.hybrid)
-    cout = Mre.shape[-2]
-    tail = state.ola_tail.reshape(S, cout, _TOTAL_HOPS - 1, hop)
-    if blk_dg is not None:
-        # (d, g)-pair pipeline (round-5): the front kernel computes the
-        # hybrid FIR in hop-major layout where the shifted slices are
-        # free, so NEITHER kernel performs sublane-misaligned copies —
-        # the dominant cost of the round-4 pipeline (see _kernel_dg)
-        from spatial_audio_framework_tpu.ops.pallas_afstft import (
-            _G_BANDS, analysis_front_dg_ri, render_decode_synthesis_dg_ri)
-        d_re, d_im, g_re, g_im = analysis_front_dg_ri(
-            state.in_tail.reshape(S * cin, -1), x.reshape(S * cin, -1),
-            low_delay=bank.low_delay, interpret=interpret,
-            mxu_mode=mxu_mode)
-        sh = (S, cin, H, hop + 1)
-        shg = (S, cin, H, _G_BANDS)
-        y, new_tail = render_decode_synthesis_dg_ri(
-            d_re.reshape(sh), d_im.reshape(sh), g_re.reshape(shg),
-            g_im.reshape(shg), tail, taps, low_delay=bank.low_delay,
-            per_stream=per_stream_m, interpret=interpret, blk=blk_dg,
-            mxu_mode=mxu_mode)
-        return y, AfSTFTStateBatched(
-            in_tail=new_in_tail,
-            ola_tail=new_tail.reshape(S, cout, -1))
-    sre, sim = analysis_front_ri(
-        state.in_tail.reshape(S * cin, -1), x.reshape(S * cin, -1),
-        low_delay=bank.low_delay, interpret=interpret, mxu_mode=mxu_mode)
-    sre = sre.reshape(S, cin, H + 6, hop + 1)
-    sim = sim.reshape(S, cin, H + 6, hop + 1)
-    y, new_tail = render_decode_synthesis_ri(
-        sre, sim, tail, taps, low_delay=bank.low_delay, hybrid=bank.hybrid,
-        per_stream=per_stream_m, interpret=interpret, blk=blk,
-        mxu_mode=mxu_mode)
-    return y, AfSTFTStateBatched(
-        in_tail=new_in_tail,
-        ola_tail=new_tail.reshape(S, cout, -1))
+    out_p = out.reshape(S, cout, H, nb2)
+    return synthesis_ri_batched(bank, state, out_p, packed=True,
+                                precision=precision)
 
 
 def analysis_ri(bank: AfSTFT, state: AfSTFTStateRI, x: jax.Array,
-                mxu_mode: Optional[str] = None
+                precision: Optional[str] = None
                 ) -> Tuple[Tuple[jax.Array, jax.Array], AfSTFTStateRI]:
     """x: (n_ch, H*hop) → ((re, im) each (n_bands, n_ch, H), state).
-    ``mxu_mode``: per-call MXU matmul precision (None = process default)."""
+    ``precision``: matmul precision mode (None = the process default)."""
     hop, h_len = bank.hop, bank.h_len
     n_ch = x.shape[0]
     H = x.shape[1] // hop
     buf = jnp.concatenate([state.in_tail, x], axis=-1)
     hops = buf.reshape(n_ch, H + _TOTAL_HOPS - 1, hop)
-    xprec = _prec.to_xla(_prec.resolve_mode(mxu_mode))
+    xprec = _prec.to_xla(_prec.resolve_mode(precision))
     if 4 * n_ch * H * _TOTAL_HOPS * hop <= _ANA_STACK_SMALL:
         # per-block-scale calls (e.g. HADES: H=1 per 64-block scan): the
-        # stacked fold + rDFT matmul is a single tiny fused op and beats
-        # the conv by ~3× here; the stack is ≤256 KiB per trace, so even
-        # 32 vmapped instances stay well off the HBM-temporary cliff
+        # stacked fold + rDFT matmul is a single tiny fused op; the stack
+        # is ≤256 KiB per trace
         w_ana, _ = _windows(hop, bank.low_delay)
         C, S = _rdft_mats(2 * hop)[:2]
         folded = _fold_hops_ri(hops, H, hop, jnp.asarray(w_ana))
@@ -879,11 +318,8 @@ def analysis_ri(bank: AfSTFT, state: AfSTFTStateRI, x: jax.Array,
     else:
         # framing ⊗ window ⊗ fold ⊗ rDFT as ONE 1-D convolution over the
         # hop axis (kernel (10, hop, 2·(hop+1)) = window-slice × rDFT-half
-        # per overlap tap): no 10×-overlapped frame stack is ever
-        # materialised, at ANY batch size — including under vmap, where
-        # the round-4 stacked formulation cost 32 analyser instances
-        # ~480 MiB of HBM temporaries per dispatch and made batching a
-        # throughput LOSS (VERDICT r4 weak #1)
+        # per overlap tap): no 10×-overlapped frame stack is materialised
+        # at any batch size, including under vmap
         K = jnp.asarray(_ana_conv_kernel(hop, bank.low_delay))
         out = jax.lax.conv_general_dilated(
             hops, K, window_strides=(1,), padding="VALID",
@@ -904,15 +340,14 @@ def analysis_ri(bank: AfSTFT, state: AfSTFTStateRI, x: jax.Array,
 
 def synthesis_ri(bank: AfSTFT, state: AfSTFTStateRI,
                  Y: Tuple[jax.Array, jax.Array],
-                 mxu_mode: Optional[str] = None):
+                 precision: Optional[str] = None):
     """Y: (re, im) each (n_bands, n_ch, H) → ((n_ch, H*hop), state).
-    ``mxu_mode``: per-call MXU matmul precision (None = process default)."""
-    hop, h_len = bank.hop, bank.h_len
+    ``precision``: matmul precision mode (None = the process default)."""
+    hop = bank.hop
     _, w_syn = _windows(hop, bank.low_delay)
     _, _, A, B = _rdft_mats(2 * hop)
     Yre = Y[0].transpose(1, 2, 0)
     Yim = Y[1].transpose(1, 2, 0)
-    n_ch, H = Yre.shape[:2]
     if bank.hybrid:
         Yre = _hybrid_inverse_ri(Yre)
         Yim = _hybrid_inverse_ri(Yim)
@@ -921,19 +356,8 @@ def synthesis_ri(bank: AfSTFT, state: AfSTFTStateRI,
                            jnp.float32)
         Yre = Yre * sign
         Yim = Yim * sign
-    xprec = _prec.to_xla(_prec.resolve_mode(mxu_mode))
+    xprec = _prec.to_xla(_prec.resolve_mode(precision))
     frame = (jnp.matmul(Yre, jnp.asarray(A), precision=xprec)
              + jnp.matmul(Yim, jnp.asarray(B), precision=xprec))
-    # overlap-add without materialising the (n_ch, H, 10, hop) tiled
-    # contributions: contribution k is frame's (k%2) half times one window
-    # slice (bitwise-identical values; see _fold_hops_ri for the analysis
-    # twin and the many-instance HBM-temporary rationale)
-    w_syn_j = jnp.asarray(w_syn)
-    acc = jnp.zeros((n_ch, H + _TOTAL_HOPS - 1, hop), frame.dtype)
-    for k in range(_TOTAL_HOPS):
-        half = (k % 2) * hop
-        acc = acc.at[:, k:k + H].add(
-            frame[..., half:half + hop] * w_syn_j[k * hop:(k + 1) * hop])
-    flat = acc.reshape(n_ch, (H + _TOTAL_HOPS - 1) * hop)
-    flat = flat.at[:, :h_len - hop].add(state.ola_tail)
-    return flat[:, :H * hop], state._replace(ola_tail=flat[:, H * hop:])
+    y, tail = overlap_add(frame, state.ola_tail, w_syn, hop)
+    return y, state._replace(ola_tail=tail)

@@ -1,10 +1,10 @@
-"""IIR filtering as a TPU-parallel linear recurrence.
+"""IIR filtering as a parallel linear recurrence.
 
 The reference applies IIRs sample-by-sample (saf_utility_filters.c
 ``applyIIR``, direct-form-II).  A sequential per-sample loop is the worst
-case for a TPU, but an order-d IIR is a *linear* recurrence
+case for a wide accelerator, but an order-d IIR is a *linear* recurrence
 s_t = A s_{t-1} + B x_t, which evaluates in O(log T) depth with
-``lax.associative_scan`` over affine maps — the TPU-native formulation.
+``lax.associative_scan`` over affine maps.
 
 ``iir_filter`` matches scipy.signal.lfilter (direct-form-II-transposed
 semantics) including initial/final conditions, batched over leading axes.
@@ -25,8 +25,8 @@ def _affine_scan(A: jax.Array, bvec: jax.Array):
     T = bvec.shape[0]
     As = jnp.broadcast_to(A, (T,) + bvec.shape[1:] + (A.shape[-1],))
 
-    # The affine compositions MUST run in full f32: TPU matmuls default to
-    # bf16 inputs, and repeated composition of near-unit-circle pole
+    # The affine compositions MUST run in full f32: reduced-precision
+    # matmul inputs (bf16 or TF32), and repeated composition of near-unit-circle pole
     # matrices (e.g. a 100 Hz HPF at 48 kHz) then overflows to NaN.
     hp = jax.lax.Precision.HIGHEST
 
@@ -139,7 +139,7 @@ def _iir_block_mats(b: np.ndarray, a: np.ndarray, T: int):
 
     This replaces the associative scan of (d × d) companion products —
     O(T·d³) FLOPs in badly-padded tiny matmuls for the order-20 lattice
-    decorrelators — with four dense MXU matmuls.  Exact for any h decay
+    decorrelators — with four dense matmuls.  Exact for any h decay
     (the state terms carry whatever the T-tap window does not)."""
     key = (b.tobytes(), a.tobytes(), b.shape, a.shape, T)
     hit = _BLOCK_MATS_CACHE.get(key)

@@ -6,7 +6,7 @@
 * ``TVConv``   — time-varying partitioned convolution with linear crossfade
   between filter sets on position change (saf_utility_matrixConv.c:439-660).
 
-TPU-native design: filters are pre-FFT'd into a stacked partition tensor at
+Design: filters are pre-FFT'd into a stacked partition tensor at
 design time; each hop is ONE batched complex einsum over
 (partitions × out × in × bins), and whole blocks of hops are processed at
 once by stacking shifted views of the input-spectra ring (the "sequence
@@ -28,7 +28,8 @@ from spatial_audio_framework_tpu.ops import precision as _prec
 
 # natively-batched MatrixConv RI dispatches at or above this many instances
 # use the grouped-conv spectral core instead of the sliding-window einsum
-# (measured crossover ~8 on v5e; see MatrixConv._conv_core_ri)
+# (threshold tuned on an earlier accelerator, not measured on the H100;
+# see MatrixConv._conv_core_ri)
 _CONV_CORE_MIN_BATCH = 8
 
 
@@ -217,9 +218,8 @@ class MatrixConv:
             # convolution over the hop axis (groups = bins; per group a
             # (n_in·2 → n_out·2) re/im mixing kernel, partitions reversed
             # into conv taps).  No (nh, P, n_in, bins) sliding-window
-            # stack is materialised — at 32 instances that stack made the
-            # dispatch 4.4× slower than this core (measured); below ~8
-            # instances the einsum core wins (the conv has a ~4 ms floor).
+            # stack is materialised; below _CONV_CORE_MIN_BATCH instances
+            # the einsum core is used.
             Yre, Yim = self._conv_core_ri(Hre, Him, full, nh, bshape)
         else:
             win = jnp.stack([full[..., P - 1 - k: P - 1 - k + nh, :, :]

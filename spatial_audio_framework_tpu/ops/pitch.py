@@ -69,7 +69,7 @@ class SmbPitchShift:
 
         The previous direct matmul-DFT operators were (N, N/2+1) dense —
         ~0.5 GB of constants at fft_size 8192 and 67M MACs per frame.  The
-        factored stages are three small MXU matmuls + a twiddle product
+        factored stages are three small matmuls + a twiddle product
         (W1 (N1,N1), W2 (N2,N2), twiddles (N2,N1): <200 kB total, ~16×
         fewer FLOPs).  The synthesis inverse computes the C's one-sided
         unscaled IDFT real part U(n) = Re Σ_{k≤N/2} S_k e^{+i2πkn/N}

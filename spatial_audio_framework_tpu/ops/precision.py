@@ -1,35 +1,27 @@
-"""Process-time MXU matmul precision policy — ONE policy for both halves of
-the pipeline (XLA einsum/matmul paths AND the fused Pallas kernels).
+"""Process-time matmul precision policy — ONE policy for every XLA matmul
+and einsum on the process paths.
 
-XLA:TPU lowers f32 matmuls onto the bf16 MXU by splitting each operand into
-bf16 limbs and accumulating several passes:
-
-* ``"default"``  — 1 pass  (bf16 inputs; ~2^-8 relative error)
-* ``"high"``     — 3 passes (the "bf16_3x"/f32x3 scheme; ~2^-21)
-* ``"highest"``  — 6 passes (full f32; ~2^-24)
+Three modes, mapped to ``jax.lax.Precision`` for float32 operands:
+``"default"`` → DEFAULT, ``"high"`` → HIGH, ``"highest"`` → HIGHEST.  On
+the CPU all three compute in float32.  On the H100 DEFAULT and HIGH both
+run as TF32 (about 2e-4 relative error on the 256-point rDFT matmul) and
+HIGHEST as float32 (about 6e-7); PERF.md has the measurements.
 
 The C reference (saf_utility_veclib) computes in exact f32, so design-time
 code here stays at ``EXACT`` (HIGHEST).  The per-block *process* paths use
-the HOT mode (default ``"high"``): the 3-pass scheme doubles effective MXU
-throughput at a relative error (~5e-7) far inside the 1e-4 C-parity budget.
-The fused Pallas kernels implement the same scheme by hand (Mosaic does not
-lower ``Precision.HIGH``; see ops/pallas_afstft._mm) — "f32x3" is accepted
-as an alias of "high" everywhere.
+the HOT mode, default ``"highest"``: at HIGH the flagship render on the
+H100 is 6.4e-4 max-abs off HIGHEST, over the 1e-4 C-parity budget.
 
-Per-call control: every fused-kernel entry point and render path takes an
-optional ``mxu_mode`` argument ("default"|"high"|"highest", None = this
-module's HOT mode), threaded from model configs (e.g.
-``AmbiBinConfig.mxu_precision``).  The environment variable is a process
-default only, not an import-frozen trap: :func:`set_hot_precision` changes
-the mode for traces executed after the call, and ``mxu_mode`` overrides it
-per call.
+Per-call control: every render path takes an optional ``precision``
+argument ("default"|"high"|"highest", None = this module's HOT mode),
+threaded from model configs (e.g. ``AmbiBinConfig.matmul_precision``).  The
+environment variable is a process default only: :func:`set_hot_precision`
+changes the mode for traces executed after the call, and ``precision``
+overrides it per call.
 
-Environment: ``SAF_TPU_MATMUL_PRECISION=default|high|highest`` (canonical;
-``f32x3`` accepted).  The legacy ``SAF_TPU_MXU_PRECISION`` variable — which
-used to control only the Pallas kernels, with a different vocabulary — is
-honored as a fallback with a deprecation warning; if both are set and
-disagree, the canonical variable wins.  An invalid value warns and falls
-back to "high" (never crashes the whole package at import).
+Environment: ``SAF_MATMUL_PRECISION=default|high|highest``.  An invalid
+value warns and falls back to the default (never crashes the whole package
+at import).
 """
 from __future__ import annotations
 
@@ -44,18 +36,17 @@ _XLA = {
     "high": jax.lax.Precision.HIGH,
     "highest": jax.lax.Precision.HIGHEST,
 }
-_ALIASES = {"f32x3": "high"}
 VALID_MODES = tuple(_XLA)
+_DEFAULT_MODE = "highest"
 
 
 def normalize_mode(mode: str) -> str:
     """Canonical mode string; raises ValueError with the valid vocabulary."""
     m = str(mode).lower()
-    m = _ALIASES.get(m, m)
     if m not in _XLA:
         raise ValueError(
-            f"invalid MXU precision mode {mode!r}: expected one of "
-            f"{'|'.join(VALID_MODES)} (or the alias 'f32x3' == 'high')")
+            f"invalid matmul precision mode {mode!r}: expected one of "
+            f"{'|'.join(VALID_MODES)}")
     return m
 
 
@@ -65,38 +56,20 @@ def to_xla(mode: str) -> jax.lax.Precision:
 
 
 def _mode_from_env() -> str:
-    raw = os.environ.get("SAF_TPU_MATMUL_PRECISION")
-    legacy = os.environ.get("SAF_TPU_MXU_PRECISION")
-    if legacy is not None:
-        warnings.warn(
-            "SAF_TPU_MXU_PRECISION is deprecated; both the XLA paths and "
-            "the Pallas kernels are controlled by SAF_TPU_MATMUL_PRECISION "
-            "(default|high|highest; 'f32x3' == 'high')",
-            DeprecationWarning, stacklevel=3)
-    chosen = raw if raw is not None else legacy
-    if chosen is None:
-        return "high"
+    raw = os.environ.get("SAF_MATMUL_PRECISION")
+    if raw is None:
+        return _DEFAULT_MODE
     try:
-        mode = normalize_mode(chosen)
+        return normalize_mode(raw)
     except ValueError as e:
-        warnings.warn(f"{e}; falling back to 'high'", stacklevel=3)
-        return "high"
-    if raw is not None and legacy is not None:
-        try:
-            if normalize_mode(legacy) != mode:
-                warnings.warn(
-                    "SAF_TPU_MATMUL_PRECISION and SAF_TPU_MXU_PRECISION "
-                    f"disagree ({raw!r} vs {legacy!r}); using "
-                    f"SAF_TPU_MATMUL_PRECISION={mode!r} for BOTH the XLA "
-                    "and Pallas halves of the pipeline", stacklevel=3)
-        except ValueError:
-            pass
-    return mode
+        warnings.warn(f"{e}; falling back to {_DEFAULT_MODE!r}",
+                      stacklevel=3)
+        return _DEFAULT_MODE
 
 
 _HOT_MODE = _mode_from_env()
 
-# jax.lax.Precision for process-time XLA matmuls (legacy constant; prefer
+# jax.lax.Precision for process-time XLA matmuls (prefer
 # resolve_mode()/to_xla() in code that supports per-call override)
 HOT = _XLA[_HOT_MODE]
 
@@ -118,8 +91,7 @@ def resolve_mode(mode: Optional[str] = None) -> str:
 
 
 def set_hot_precision(mode: str) -> None:
-    """Set the process-default matmul precision ('default'|'high'|'highest',
-    'f32x3' accepted as 'high').
+    """Set the process-default matmul precision ('default'|'high'|'highest').
 
     Takes effect for traces executed after the call (already-jitted
     executables keep the precision they were traced with).

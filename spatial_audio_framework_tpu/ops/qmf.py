@@ -4,9 +4,9 @@ Complex-modulated K-band filterbank with a 10·hop prototype, plus an optional
 hybrid stage that subdivides the 3 lowest bands (8/4/4 subbands → K+7 hybrid
 bands; saf_utility_qmf.c:149-313,314-436,437-560).
 
-TPU-native structure mirrors ops.afstft: pure block-batched functions with an
+The structure mirrors ops.afstft: pure block-batched functions with an
 explicit state pytree; the per-hop modulation is a dense (2·hop × K) complex
-matmul (MXU) and the hybrid stage a 13-tap FIR along hop-time.
+matmul and the hybrid stage a 13-tap FIR along hop-time.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ The reference's 114 ``utility_?xxx`` functions wrap CBLAS/LAPACK per dtype
 prefix (s/c/d/z).  Here the backend axis collapses to NumPy (host design
 work, float64) and jnp (device, batched) — both dispatch through the same
 functions, and every op accepts leading batch dimensions, which is the
-TPU-native replacement for the reference's per-call workspace handles.
+replacement for the reference's per-call workspace handles.
 
 Naming maps 1:1 (minus the dtype prefix): e.g. ``utility_ssvd``/``csvd`` →
 ``svd``; ``utility_cglslv`` → ``glslv``; ``utility_spinv`` → ``pinv``.

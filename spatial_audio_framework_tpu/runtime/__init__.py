@@ -15,8 +15,4 @@ from spatial_audio_framework_tpu.runtime.native import (  # noqa: F401
     native_available,
 )
 from spatial_audio_framework_tpu.runtime.stream import StreamRunner  # noqa: F401
-from spatial_audio_framework_tpu.runtime.watchdog import (  # noqa: F401
-    DeviceWedgeError,
-    Watchdog,
-    probe_device,
-)
+from spatial_audio_framework_tpu.runtime.watchdog import Watchdog  # noqa: F401

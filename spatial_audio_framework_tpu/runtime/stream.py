@@ -10,7 +10,7 @@ coordinates with the audio path through the CODEC/PROC status handshake
 
 Optionally runs decoupled: `start()` spawns a render thread fed by lock-free
 ring buffers, so a real audio callback only ever touches rb_write/rb_read —
-the TPU dispatch happens on the render thread.
+the device dispatch happens on the render thread.
 """
 from __future__ import annotations
 

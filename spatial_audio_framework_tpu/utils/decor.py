@@ -3,9 +3,9 @@ assignment, synthesised noise reverb, the lattice all-pass decorrelator and
 the transient ducker.
 
 The lattice decorrelator's per-(band, channel) all-pass IIRs run along the
-hop-time axis; TPU-native they evaluate in the exact block form
-(``ops.iir.iir_filter_batched_block``: dense Toeplitz/state matmuls on the
-MXU) instead of the reference's per-sample triple loop
+hop-time axis; here they evaluate in the exact block form
+(``ops.iir.iir_filter_batched_block``: dense Toeplitz/state matmuls)
+instead of the reference's per-sample triple loop
 (saf_utility_decor.c:300-383).
 """
 from __future__ import annotations

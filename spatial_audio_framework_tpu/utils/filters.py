@@ -1,7 +1,7 @@
 """Filter design & application (counterpart of ``saf_utility_filters``).
 
 Design functions are host-side NumPy/SciPy in float64; the run-time
-application paths use either scipy (host) or the TPU-parallel linear
+application paths use either scipy (host) or the parallel linear
 recurrence in ``ops.iir``.
 """
 from __future__ import annotations

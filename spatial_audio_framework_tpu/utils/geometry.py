@@ -1,6 +1,6 @@
 """Geometry: spherical/cartesian conversions, Euler/quaternion rotations.
 
-TPU-native counterpart of ``saf_utility_geometry.h/.c``.  All functions are
+Counterpart of ``saf_utility_geometry.h/.c``.  All functions are
 backend-agnostic: they accept NumPy or JAX arrays and return the same kind
 (design-time code uses NumPy; traced process-paths pass jnp arrays).
 

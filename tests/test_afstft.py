@@ -67,8 +67,8 @@ def test_proc_delay_values():
 
 
 def test_matmul_dft_impl_matches_fft():
-    """The DFT-as-matmul path (used on TPU, where XLA FFT is unavailable)
-    must match the native-FFT path."""
+    """The DFT-as-matmul path (the matmul form the afSTFT's rDFT matrices
+    and the fused render kernel use) must match the native-FFT path."""
     from spatial_audio_framework_tpu.ops.fft import force_dft_impl, rfft_op, irfft_op
 
     rng = np.random.default_rng(7)
@@ -92,3 +92,18 @@ def test_matmul_dft_impl_matches_fft():
         y = np.asarray(y)
     d = cfg.proc_delay
     assert np.abs(y[:, d:] - xx[:, : xx.shape[1] - d]).max() < 0.01
+
+
+@pytest.mark.parametrize("impl", ["fft", "matmul"])
+def test_irfft_ignores_edge_imaginary_parts(impl):
+    """The imaginary parts of the DC and Nyquist bins do not contribute to
+    the inverse real DFT (saf_rfft and numpy semantics), on either DFT
+    implementation."""
+    from spatial_audio_framework_tpu.ops.fft import force_dft_impl, irfft_op
+
+    rng = np.random.default_rng(3)
+    X = (rng.standard_normal((5, 129))
+         + 1j * rng.standard_normal((5, 129))).astype(np.complex64)
+    with force_dft_impl(impl):
+        y = np.asarray(irfft_op(jnp.asarray(X), 256))
+    np.testing.assert_allclose(y, np.fft.irfft(X, 256), atol=1e-5)

@@ -54,8 +54,8 @@ def test_ambi_bin_process_ri_equivalence():
 
 @pytest.mark.goldens
 def test_ambi_bin_batched_pallas_equivalence():
-    """Stream-batched path with the fused pallas front-end (interpret mode on
-    CPU) equals the per-stream RI pipeline."""
+    """Stream-batched path equals the per-stream RI pipeline, and carries
+    its state across blocks."""
     cfg = ambi_bin.AmbiBinConfig(order=3, method="magls")
     wri = ambi_bin.design_ri(cfg)
     S, H = 3, 16
@@ -71,17 +71,11 @@ def test_ambi_bin_batched_pallas_equivalence():
         ys.append(np.asarray(y))
     ref = np.stack(ys)
 
-    stb = ambi_bin.init_state_batched(cfg, S)
-    yb, stb = ambi_bin.process_ri_batched(cfg, wri, stb, jnp.asarray(x),
-                                          use_pallas=True, interpret=True)
-    np.testing.assert_allclose(np.asarray(yb), ref, atol=1e-4)
-    # XLA (no-pallas) batched path too, and a second block for state carry
     stb2 = ambi_bin.init_state_batched(cfg, S)
-    yb2, stb2 = ambi_bin.process_ri_batched(cfg, wri, stb2, jnp.asarray(x),
-                                            use_pallas=False)
+    yb2, stb2 = ambi_bin.process_ri_batched(cfg, wri, stb2, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(yb2), ref, atol=1e-5)
-    y2b, _ = ambi_bin.process_ri_batched(cfg, wri, stb2, jnp.asarray(x),
-                                         use_pallas=False)
+    # a second block for state carry
+    y2b, _ = ambi_bin.process_ri_batched(cfg, wri, stb2, jnp.asarray(x))
     st1 = ambi_bin.init_state_ri(cfg)
     y1, st1 = ambi_bin.process_ri(cfg, wri, st1, jnp.asarray(x[0]))
     y2, _ = ambi_bin.process_ri(cfg, wri, st1, jnp.asarray(x[0]))
@@ -99,14 +93,12 @@ def test_batched_pallas_small_blocks_state_carry():
     x = rng.uniform(-1, 1, (S, cfg.nsh, 8 * 128)).astype(np.float32)
 
     st = ambi_bin.init_state_batched(cfg, S)
-    y_big, _ = ambi_bin.process_ri_batched(cfg, wri, st, jnp.asarray(x),
-                                           use_pallas=True, interpret=True)
+    y_big, _ = ambi_bin.process_ri_batched(cfg, wri, st, jnp.asarray(x))
     st = ambi_bin.init_state_batched(cfg, S)
     ys = []
     for k in range(4):
         y, st = ambi_bin.process_ri_batched(
-            cfg, wri, st, jnp.asarray(x[:, :, k * 256:(k + 1) * 256]),
-            use_pallas=True, interpret=True)
+            cfg, wri, st, jnp.asarray(x[:, :, k * 256:(k + 1) * 256]))
         ys.append(np.asarray(y))
     np.testing.assert_allclose(np.concatenate(ys, axis=-1),
                                np.asarray(y_big), atol=1e-5)
@@ -140,8 +132,7 @@ def test_binauraliser_batched_fast_path():
     stb = B.init_state_batched(cfg, S)
     yb, _ = B.process_ri_batched(cfg, wri, stb, jnp.asarray(x),
                                  jnp.asarray(dirs), jnp.asarray(gains),
-                                 jnp.asarray(ypr), use_pallas=True,
-                                 interpret=True)
+                                 jnp.asarray(ypr))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=1e-4)
 
 
@@ -172,8 +163,7 @@ def test_roombinauraliser_batched_fast_path():
     ref = np.stack(ys)
     stb = RB.init_state_batched(cfg, 2)
     yb, _ = RB.process_ri_batched(cfg2, wri, stb, jnp.asarray(x),
-                                  ypr=jnp.asarray(ypr), use_pallas=True,
-                                  interpret=True)
+                                  ypr=jnp.asarray(ypr))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=1e-4)
 
 
@@ -196,8 +186,7 @@ def test_ambi_dec_batched_fast_path():
     ref = np.stack(ys)
     wri = D.design_ri(cfg, ls)
     stb = D.init_state_batched(cfg, S, ls.shape[0])
-    yb, _ = D.process_ri_batched(cfg, wri, stb, jnp.asarray(x),
-                                 use_pallas=True, interpret=True)
+    yb, _ = D.process_ri_batched(cfg, wri, stb, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=1e-4)
 
 
@@ -224,8 +213,7 @@ def test_panner_batched_fast_path():
     ref = np.stack(ys)
     stb = P.init_state_batched(cfg, S, ls.shape[0])
     yb, _ = P.process_ri_batched(cfg, w, stb, jnp.asarray(x),
-                                 jnp.asarray(dirs), jnp.asarray(ypr),
-                                 use_pallas=True, interpret=True)
+                                 jnp.asarray(dirs), jnp.asarray(ypr))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=1e-4)
 
 
@@ -242,9 +230,7 @@ def test_long_run_stability():
 
     def run(wri, st, xs):
         def body(st, xk):
-            y, st = ambi_bin.process_ri_batched(cfg, wri, st, xk,
-                                                use_pallas=True,
-                                                interpret=True)
+            y, st = ambi_bin.process_ri_batched(cfg, wri, st, xk)
             return st, (jnp.max(jnp.abs(y)), jnp.sum(y * y))
         st, (peaks, es) = jax.lax.scan(body, st, xs)
         return st, peaks, es
@@ -275,12 +261,10 @@ def test_ambi_drc_batched_fast_path():
         ys.append(np.asarray(y))
     ref = np.stack(ys)
     stb = DRC.init_state_batched(cfg, S)
-    yb, stb = DRC.process_ri_batched(cfg, stb, jnp.asarray(x),
-                                     use_pallas=True, interpret=True)
+    yb, stb = DRC.process_ri_batched(cfg, stb, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=2e-4)
     # second block continues the smoother state
-    yb2, _ = DRC.process_ri_batched(cfg, stb, jnp.asarray(x),
-                                    use_pallas=True, interpret=True)
+    yb2, _ = DRC.process_ri_batched(cfg, stb, jnp.asarray(x))
     assert np.isfinite(np.asarray(yb2)).all()
 
 
@@ -306,8 +290,7 @@ def test_binauraliser_nf_batched_fast_path():
     ref = np.stack(ys)
     stb = NF.init_state_batched(cfg, S)
     yb, _ = NF.process_ri_batched(cfg, wri, stb, jnp.asarray(x),
-                                  jnp.asarray(dirs), jnp.asarray(dists),
-                                  use_pallas=True, interpret=True)
+                                  jnp.asarray(dirs), jnp.asarray(dists))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=1e-4)
 
 
@@ -327,8 +310,7 @@ def test_decorrelator_batched_fast_path():
         ys.append(np.asarray(y))
     ref = np.stack(ys)
     stb = DC.init_state_batched(cfg, dd, S)
-    yb, _ = DC.process_ri_batched(cfg, dd, stb, jnp.asarray(x),
-                                  use_pallas=True, interpret=True)
+    yb, _ = DC.process_ri_batched(cfg, dd, stb, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=2e-4)
 
 
@@ -352,17 +334,46 @@ def test_array2sh_batched_fast_path():
         ys.append(np.asarray(y))
     ref = np.stack(ys)
     stb = A2.init_state_batched(cfg, S, 8)
-    yb, _ = A2.process_ri_batched(cfg, wri, stb, jnp.asarray(x),
-                                  use_pallas=True, interpret=True)
+    yb, _ = A2.process_ri_batched(cfg, wri, stb, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(yb), ref, atol=2e-4)
+
+
+def _complex_render(bank, xs, Mre, Mim):
+    """Independent reference: per stream, the complex afSTFT analysis →
+    complex per-band mixing → synthesis (ops.afstft), blocks carried."""
+    M = np.asarray(Mre) + 1j * (0.0 if Mim is None else np.asarray(Mim))
+    S, cin = xs[0].shape[:2]
+    cout = M.shape[-2]
+    ys = []
+    for s in range(S):
+        Ms = jnp.asarray((M[s] if M.ndim == 4 else M).astype(np.complex64))
+        st = bank.init_state(cin, cout)
+        out = []
+        for x in xs:
+            spec, st = bank.analysis(st, jnp.asarray(x[s]))
+            mixed = jnp.einsum("bes,bsh->beh", Ms, spec,
+                               precision=jax.lax.Precision.HIGHEST)
+            y, st = bank.synthesis(st, mixed)
+            out.append(np.asarray(y))
+        ys.append(np.concatenate(out, -1))
+    return np.stack(ys)
+
+
+def _batched_render(bank, xs, Mre, Mim):
+    S, cin = xs[0].shape[:2]
+    st = ri.init_state_batched(bank, S, cin, Mre.shape[-2])
+    out = []
+    for x in xs:
+        y, st = ri.render_tf_matrix_ri(bank, st, jnp.asarray(x), Mre, Mim)
+        out.append(np.asarray(y))
+    return np.concatenate(out, -1)
 
 
 @pytest.mark.goldens
 def test_render_tf_matrix_fused_matches_einsum_path():
-    """The fully-fused renderer (hybrid⊗decode⊗inverse collapsed into
-    uniform-band taps; ops.pallas_afstft.render_decode_synthesis_ri) equals
-    the packed-spectrum einsum path bit-for-nearly (≤1e-5), for shared and
-    per-stream complex M, hybrid and non-hybrid banks, with state carry."""
+    """The batched packed-spectrum render (one einsum over all bands)
+    equals the complex afSTFT path, for shared and per-stream complex M,
+    hybrid and non-hybrid banks, with state carry."""
     rng = np.random.default_rng(5)
     S, cin, cout, H = 3, 5, 2, 4
     for hybrid in (True, False):
@@ -372,330 +383,63 @@ def test_render_tf_matrix_fused_matches_einsum_path():
             mshape = (S, nb, cout, cin) if per_stream else (nb, cout, cin)
             Mre = jnp.asarray(rng.standard_normal(mshape).astype(np.float32))
             Mim = jnp.asarray(rng.standard_normal(mshape).astype(np.float32))
-            x1 = jnp.asarray(rng.uniform(
-                -1, 1, (S, cin, H * 128)).astype(np.float32))
-            x2 = jnp.asarray(rng.uniform(
-                -1, 1, (S, cin, H * 128)).astype(np.float32))
-
-            st = ri.init_state_batched(bank, S, cin, cout)
-            ya1, st1 = ri.render_tf_matrix_fused(
-                bank, st, x1, Mre, Mim, use_pallas=False)
-            ya2, _ = ri.render_tf_matrix_fused(
-                bank, st1, x2, Mre, Mim, use_pallas=False)
-
-            st = ri.init_state_batched(bank, S, cin, cout)
-            yb1, st1 = ri.render_tf_matrix_fused(
-                bank, st, x1, Mre, Mim, interpret=True)
-            yb2, _ = ri.render_tf_matrix_fused(
-                bank, st1, x2, Mre, Mim, interpret=True)
-            np.testing.assert_allclose(np.asarray(yb1), np.asarray(ya1),
-                                       atol=1e-5)
-            np.testing.assert_allclose(np.asarray(yb2), np.asarray(ya2),
-                                       atol=1e-5)
+            xs = [rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32)
+                  for _ in range(2)]
+            np.testing.assert_allclose(_batched_render(bank, xs, Mre, Mim),
+                                       _complex_render(bank, xs, Mre, Mim),
+                                       atol=2e-5)
 
 
 @pytest.mark.goldens
 def test_render_fused_real_matrix_and_short_block():
-    """Mim=None (real mixing) and H<9 blocks exercise the zero-imag taps and
-    the OLA tail-carry branch of the fused kernel."""
+    """Mim=None (real mixing) and H<9 blocks exercise the real-matrix
+    einsum and the OLA tail-carry branch."""
     rng = np.random.default_rng(6)
     bank = AfSTFT(hop=128, hybrid=True)
     S, cin, cout = 2, 3, 2
     Mre = jnp.asarray(rng.standard_normal((133, cout, cin)).astype(np.float32))
-    x = jnp.asarray(rng.uniform(-1, 1, (S, cin, 128)).astype(np.float32))
-
-    st = ri.init_state_batched(bank, S, cin, cout)
-    ya, sta = ri.render_tf_matrix_fused(bank, st, x, Mre, use_pallas=False)
-    ya2, _ = ri.render_tf_matrix_fused(bank, sta, x, Mre, use_pallas=False)
-    st = ri.init_state_batched(bank, S, cin, cout)
-    yb, stb = ri.render_tf_matrix_fused(bank, st, x, Mre, interpret=True)
-    yb2, _ = ri.render_tf_matrix_fused(bank, stb, x, Mre, interpret=True)
-    np.testing.assert_allclose(np.asarray(yb), np.asarray(ya), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(yb2), np.asarray(ya2), atol=1e-5)
+    xs = [rng.uniform(-1, 1, (S, cin, 128)).astype(np.float32)
+          for _ in range(12)]
+    np.testing.assert_allclose(_batched_render(bank, xs, Mre, None),
+                               _complex_render(bank, xs, Mre, None),
+                               atol=2e-5)
 
 
 def test_nonstandard_hop_falls_back_to_einsum_path():
-    """ADVICE r2: the fused/pallas kernels hard-code hop=128; a bank built
-    with any other hop must be served by the XLA einsum path (identical
-    numerics) rather than producing garbage."""
+    """A bank built with a hop other than the production 128 renders
+    correctly on the batched path."""
     rng = np.random.default_rng(7)
     bank = AfSTFT(hop=64, hybrid=True)
-    st = ri.init_state_batched(bank, 1, 2, 2)
-    x = jnp.asarray(rng.uniform(-1, 1, (1, 2, 1024)).astype(np.float32))
     M = jnp.asarray(rng.standard_normal(
         (bank.n_bands, 2, 2)).astype(np.float32))
-    y1, _ = ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=True,
-                                   interpret=True)
-    y2, _ = ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(y1), np.asarray(y2))
+    xs = [rng.uniform(-1, 1, (1, 2, 1024)).astype(np.float32)
+          for _ in range(2)]
+    np.testing.assert_allclose(_batched_render(bank, xs, M, None),
+                               _complex_render(bank, xs, M, None), atol=2e-5)
 
 
-@pytest.mark.goldens
-def test_oversized_output_group_splits_to_fused(monkeypatch):
-    """XLA keeps the fused renderer's whole (y, tail) output in scoped VMEM
-    (16 MiB hard limit on v5e): dispatches whose output exceeds the budget
-    (e.g. 256 streams x 64-hop chunks, a real compile failure) are split on
-    the stream axis and lax.map'd through the fused path — NOT downgraded
-    to the ~4x-slower einsum path (measured: 256 order-3 streams
-    165 ms -> 47 ms per dispatch on v5e after this change)."""
-    bank = AfSTFT(hop=128, hybrid=True)
-    S, cin, cout, H = 6, 2, 2, 4
-    rng = np.random.default_rng(3)
-    st = ri.init_state_batched(bank, S, cin, cout)
-    x = jnp.asarray(rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32))
-    M = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    y_ref, st_ref = ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=False)
-
-    # budget admits 2-stream groups -> the search must pick g=3
-    monkeypatch.setattr(ri, "_VMEM_OUT_BUDGET",
-                        ri._synthesis_out_bytes(2, cout, H, 128))
-    y1, st1 = ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=True,
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y_ref), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(st1.ola_tail),
-                               np.asarray(st_ref.ola_tail), atol=2e-6)
-    np.testing.assert_array_equal(np.asarray(st1.in_tail),
-                                  np.asarray(st_ref.in_tail))
-
-    # per-stream mixing matrices (ndim == 4) split the same way
-    Ms = jnp.asarray(rng.standard_normal(
-        (S, bank.n_bands, cout, cin)).astype(np.float32))
-    y_refs, _ = ri.render_tf_matrix_ri(bank, st, x, Ms, use_pallas=False)
-    y2, _ = ri.render_tf_matrix_ri(bank, st, x, Ms, use_pallas=True,
-                                   interpret=True)
-    np.testing.assert_allclose(np.asarray(y2), np.asarray(y_refs), atol=2e-6)
-
-
-def test_oversized_synthesis_group_splits_to_pallas(monkeypatch):
-    """synthesis_ri_batched (the einsum-path back-end used by wide mixing
-    matrices like array2sh's 25x32) must also stream-group-split oversized
-    batches through the pallas kernel instead of dropping to the slower
-    XLA synthesis."""
-    bank = AfSTFT(hop=128, hybrid=True)
-    S, n_ch, H = 6, 3, 4
-    rng = np.random.default_rng(5)
-    st = ri.init_state_batched(bank, S, n_ch, n_ch)
-    Yre = jnp.asarray(rng.standard_normal(
-        (S, n_ch, H, bank.n_bands)).astype(np.float32))
-    Yim = jnp.asarray(rng.standard_normal(
-        (S, n_ch, H, bank.n_bands)).astype(np.float32))
-    y_ref, st_ref = ri.synthesis_ri_batched(bank, st, (Yre, Yim),
-                                            use_pallas=False)
-    monkeypatch.setattr(ri, "_VMEM_OUT_BUDGET",
-                        ri._synthesis_out_bytes(2, n_ch, H, 128))
-    y1, st1 = ri.synthesis_ri_batched(bank, st, (Yre, Yim), use_pallas=True,
-                                      interpret=True)
-    yp, stp = ri.synthesis_ri_batched(
-        bank, st, jnp.concatenate([Yre, Yim], axis=-1), use_pallas=True,
-        interpret=True, packed=True)
-    for y, s in ((y1, st1), (yp, stp)):
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
+@pytest.mark.parametrize("H", [1, 5, 9, 20])
+def test_overlap_add_matches_tiled_reference(H):
+    """overlap_add (zero-padded contributions) equals a direct per-hop
+    overlap-add, tail carry included, with and without a vmapped batch."""
+    from spatial_audio_framework_tpu.ops.afstft import _windows
+    hop = 128
+    rng = np.random.default_rng(H)
+    frame = rng.standard_normal((2, 3, H, 2 * hop)).astype(np.float32)
+    tail = rng.standard_normal((2, 3, 9 * hop)).astype(np.float32)
+    w = np.asarray(_windows(hop, False)[1], np.float64)
+    acc = np.zeros((2, 3, (H + 9) * hop))
+    for h in range(H):
+        for k in range(10):
+            half = (k % 2) * hop
+            acc[..., (h + k) * hop:(h + k + 1) * hop] += (
+                frame[..., h, half:half + hop] * w[k * hop:(k + 1) * hop])
+    acc[..., :9 * hop] += tail
+    from spatial_audio_framework_tpu.ops.afstft import overlap_add
+    ola = lambda f, t: overlap_add(f, t, w.astype(np.float32), hop)
+    for fn in (ola, jax.vmap(ola)):
+        y, new_tail = fn(jnp.asarray(frame), jnp.asarray(tail))
+        np.testing.assert_allclose(np.asarray(y), acc[..., :H * hop],
                                    atol=1e-5)
-        np.testing.assert_allclose(np.asarray(s.ola_tail),
-                                   np.asarray(st_ref.ola_tail), atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(s.in_tail),
-                                      np.asarray(st_ref.in_tail))
-
-
-@pytest.mark.goldens
-def test_wide_cin_reduces_block_and_time_splits(monkeypatch):
-    """High SH orders (wide Cin) exceed the fused render kernel's scoped-
-    VMEM footprint: the dispatcher must drop the stream block to 1, then
-    split the chunk in TIME (scanning sub-chunks through the carried
-    state — exact by the streaming design) before ever giving up the
-    fused path.  Pre-fix, orders >= 4 at 64 streams x 64-hop chunks were
-    a hard Mosaic compile error on the TPU."""
-    bank = AfSTFT(hop=128, hybrid=True)
-    S, cin, cout, H = 3, 5, 2, 8
-    rng = np.random.default_rng(9)
-    st = ri.init_state_batched(bank, S, cin, cout)
-    x = jnp.asarray(rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32))
-    M = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    Mi = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    y_ref, st_ref = ri.render_tf_matrix_ri(bank, st, x, M, Mi,
-                                           use_pallas=False)
-
-    # budget admits blk=1 at full H -> no time split
-    monkeypatch.setattr(ri, "_VMEM_STEP_BUDGET",
-                        ri._fused_step_vmem_bytes(1, cin, cout, H, 128))
-    assert ri._fit_render_block(cin, cout, H, 128, False) == 1
-    y1, st1 = ri.render_tf_matrix_fused(bank, st, x, M, Mi, interpret=True)
-    # atols cover the kernels' f32x3 matmuls on this test's unnormalised
-    # standard-normal M (split-plumbing bugs give O(1) errors)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y_ref), atol=2e-4)
-
-    # budget only admits blk=1 at H=4 -> time-split into two sub-chunks
-    monkeypatch.setattr(ri, "_VMEM_STEP_BUDGET",
-                        ri._fused_step_vmem_bytes(1, cin, cout, 4, 128))
-    assert ri._fit_render_block(cin, cout, H, 128, False) is None
-    y2, st2 = ri.render_tf_matrix_fused(bank, st, x, M, Mi, interpret=True)
-    np.testing.assert_allclose(np.asarray(y2), np.asarray(y_ref), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(st2.ola_tail),
-                               np.asarray(st_ref.ola_tail), atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(st2.in_tail),
-                                  np.asarray(st_ref.in_tail))
-
-    # per-stream mixing matrices ride the same time-split
-    Ms = jnp.asarray(rng.standard_normal(
-        (S, bank.n_bands, cout, cin)).astype(np.float32))
-    Msi = jnp.asarray(rng.standard_normal(
-        (S, bank.n_bands, cout, cin)).astype(np.float32))
-    y_refs, _ = ri.render_tf_matrix_ri(bank, st, x, Ms, Msi,
-                                       use_pallas=False)
-    monkeypatch.setattr(ri, "_VMEM_STEP_BUDGET",
-                        ri._fused_step_vmem_bytes(1, cin, cout, 4, 128,
-                                                  per_stream=True))
-    y3, _ = ri.render_tf_matrix_fused(bank, st, x, Ms, Msi, interpret=True)
-    # atol covers the kernels' f32x3 matmuls on the unnormalised
-    # standard-normal M of this test (plumbing bugs give O(1) errors)
-    np.testing.assert_allclose(np.asarray(y3), np.asarray(y_refs),
-                               atol=2e-4)
-
-    # real budget: production orders map to [blk=2, blk=1, split, split,
-    # split] for cin = 16/25/36/49/64 at 64-hop chunks (the shapes
-    # validated on the v5e — orders 3..7 all compile and match einsum)
-    monkeypatch.undo()
-    assert ri._fit_render_block(16, 2, 64, 128, False) == 2
-    assert ri._fit_render_block(25, 2, 64, 128, False) == 1
-    for cin_wide in (36, 49, 64):
-        assert ri._fit_render_block(cin_wide, 2, 64, 128, False) is None
-        assert any(64 % h == 0
-                   and ri._fit_render_block(cin_wide, 2, h, 128, False)
-                   for h in range(63, 0, -1))
-
-
-@pytest.mark.goldens
-def test_hop_cap_time_splits_analysis_and_synthesis(monkeypatch):
-    """All pallas dispatches are capped at _PALLAS_MAX_HOPS hops: the
-    analysis front / synthesis back kernels' per-step tiles scale with H
-    (measured Mosaic OOMs at H>=256 for the 32-channel einsum path), so
-    longer chunks must scan sub-chunks through the carried state.  Pinned
-    with a tiny cap so the split runs on CPU-sized shapes."""
-    bank = AfSTFT(hop=128, hybrid=True)
-    S, cin, cout, H = 2, 3, 2, 12
-    rng = np.random.default_rng(11)
-    st = ri.init_state_batched(bank, S, cin, cout)
-    x = jnp.asarray(rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32))
-    monkeypatch.setattr(ri, "_PALLAS_MAX_HOPS", 4)    # 12 -> 3 sub-chunks
-
-    spec, st1 = ri.analysis_ri_batched(bank, st, x, use_pallas=True,
-                                       interpret=True, packed=True)
-    spec_ref, st1r = ri.analysis_ri_batched(bank, st, x, use_pallas=False,
-                                            packed=True)
-    # atols in this test cover the kernels' f32x3 matmuls on unnormalised
-    # random data (split-plumbing bugs give O(1) errors)
-    np.testing.assert_allclose(np.asarray(spec), np.asarray(spec_ref),
-                               atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(st1.in_tail),
-                                  np.asarray(st1r.in_tail))
-    # tuple (unpacked) output shape agrees too
-    (sre, sim), _ = ri.analysis_ri_batched(bank, st, x, use_pallas=True,
-                                           interpret=True)
-    assert sre.shape == sim.shape == (S, cin, H, bank.n_bands)
-
-    Yre = jnp.asarray(rng.standard_normal(
-        (S, cout, H, bank.n_bands)).astype(np.float32))
-    Yim = jnp.asarray(rng.standard_normal(
-        (S, cout, H, bank.n_bands)).astype(np.float32))
-    sty = ri.init_state_batched(bank, S, cout, cout)
-    ys, sts = ri.synthesis_ri_batched(bank, sty, (Yre, Yim),
-                                      use_pallas=True, interpret=True)
-    yr, str_ = ri.synthesis_ri_batched(bank, sty, (Yre, Yim),
-                                       use_pallas=False)
-    np.testing.assert_allclose(np.asarray(ys), np.asarray(yr), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(sts.ola_tail),
-                               np.asarray(str_.ola_tail), atol=2e-4)
-
-    # the fused renderer honours the cap as well (time-split before the
-    # analysis front ever sees an over-cap H)
-    M = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    y_ref, st_ref = ri.render_tf_matrix_ri(bank, st, x, M,
-                                           use_pallas=False)
-    y2, st2 = ri.render_tf_matrix_fused(bank, st, x, M, interpret=True)
-    np.testing.assert_allclose(np.asarray(y2), np.asarray(y_ref), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(st2.ola_tail),
-                               np.asarray(st_ref.ola_tail), atol=2e-4)
-
-
-def test_unsplittable_oversized_falls_back_to_einsum_path(monkeypatch):
-    """When no stream-group split fits the VMEM budget (a single stream
-    whose per-group output is already over it), the dispatch must route to
-    the einsum path instead of failing to compile."""
-    from spatial_audio_framework_tpu.ops import pallas_afstft as pk
-
-    def boom(*a, **kw):  # the fused back-end must NOT be reached
-        raise AssertionError("fused kernel dispatched past the VMEM budget")
-
-    monkeypatch.setattr(pk, "render_decode_synthesis_ri", boom)
-    monkeypatch.setattr(pk, "render_decode_synthesis_dg_ri", boom)
-    monkeypatch.setattr(pk, "synthesis_back_ri", boom)
-    monkeypatch.setattr(pk, "render_full_ri", boom)
-
-    bank = AfSTFT(hop=128, hybrid=True)
-    S, cin, cout, H = 2, 2, 2, 4
-    monkeypatch.setattr(ri, "_VMEM_OUT_BUDGET",
-                        ri._synthesis_out_bytes(1, cout, H, 128) - 1)
-    rng = np.random.default_rng(3)
-    st = ri.init_state_batched(bank, S, cin, cout)
-    x = jnp.asarray(rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32))
-    M = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    y1, _ = ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=True,
-                                   interpret=True)
-    y3, _ = ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=False)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y3), atol=2e-6)
-
-    # an in-budget dispatch still reaches the fused kernel
-    monkeypatch.setattr(ri, "_VMEM_OUT_BUDGET", 12 * 2 ** 20)
-    with np.testing.assert_raises(AssertionError):
-        ri.render_tf_matrix_ri(bank, st, x, M, use_pallas=True,
-                               interpret=True)
-
-
-@pytest.mark.goldens
-def test_full_fusion_path_matches_default(monkeypatch):
-    """The opt-in ONE-kernel renderer (SAF_TPU_FULL_FUSION=1, kept for
-    future toolchains — measured slower on today's v5e, see
-    afstft_ri.render_tf_matrix_fused) must stay numerically identical to
-    the reference path and actually be the path taken."""
-    from spatial_audio_framework_tpu.ops import pallas_afstft as pk
-
-    monkeypatch.setenv("SAF_TPU_FULL_FUSION", "1")
-    calls = []
-    real = pk.render_full_ri
-    monkeypatch.setattr(
-        pk, "render_full_ri",
-        lambda *a, **kw: calls.append(1) or real(*a, **kw))
-
-    bank = AfSTFT(hop=128, hybrid=True)
-    S, cin, cout, H = 3, 4, 2, 8
-    rng = np.random.default_rng(11)
-    st = ri.init_state_batched(bank, S, cin, cout)
-    x = jnp.asarray(rng.uniform(-1, 1, (S, cin, H * 128)).astype(np.float32))
-    Mre = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    Mim = jnp.asarray(rng.standard_normal(
-        (bank.n_bands, cout, cin)).astype(np.float32))
-    y1, st1 = ri.render_tf_matrix_fused(bank, st, x, Mre, Mim,
-                                        interpret=True, mxu_mode="highest")
-    assert calls, "full-fusion kernel was not dispatched"
-    y2, st2 = ri.render_tf_matrix_ri(bank, st, x, Mre, Mim,
-                                     use_pallas=False)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(st1.ola_tail),
-                               np.asarray(st2.ola_tail), atol=2e-6)
-
-    # per-stream taps variant
-    Mre_s = jnp.asarray(rng.standard_normal(
-        (S, bank.n_bands, cout, cin)).astype(np.float32))
-    Mim_s = jnp.asarray(rng.standard_normal(
-        (S, bank.n_bands, cout, cin)).astype(np.float32))
-    y3, _ = ri.render_tf_matrix_fused(bank, st, x, Mre_s, Mim_s,
-                                      interpret=True, mxu_mode="highest")
-    y4, _ = ri.render_tf_matrix_ri(bank, st, x, Mre_s, Mim_s,
-                                   use_pallas=False)
-    np.testing.assert_allclose(np.asarray(y3), np.asarray(y4), atol=2e-6)
+        np.testing.assert_allclose(np.asarray(new_tail), acc[..., H * hop:],
+                                   atol=1e-5)

@@ -6,7 +6,7 @@ SAF_USE_OPEN_BLAS_AND_LAPACKE and driven on deterministic inputs following
 its own test recipes (test__resources.c:27-103, test__examples.c:29-107,
 ambi_bin.c:249-330).  The default-HRIR data (absent from the reference
 snapshot) is our synthesised set, injected into the C build, so both sides
-use identical HRIRs.  Budget: <=1e-4 absolute (BASELINE.md).
+use identical HRIRs.  Budget: <=1e-4 absolute.
 """
 import os
 
@@ -755,8 +755,7 @@ def test_panner_ypr_end_to_end_vs_c(g):
     # batched path agrees with the single-instance path under rotation
     stb = PAN.init_state_batched(cfg, 1, 9)
     yb, _ = PAN.process_ri_batched(cfg, w, stb, jnp.asarray(x)[None],
-                                   src[None], ypr=ypr[None],
-                                   use_pallas=False)
+                                   src[None], ypr=ypr[None])
     assert np.abs(np.asarray(yb)[0] - out).max() <= 1e-4
 
 
@@ -984,8 +983,7 @@ def test_ambi_dec_binaural_vs_c(g):
     # the stream-batched RI path folds H_bin·M on host — same output
     wri = DEC.design_ri(cfg, ls)
     stb = DEC.init_state_batched(cfg, 1, 9)
-    yb, _ = DEC.process_ri_batched(cfg, wri, stb, jnp.asarray(x)[None],
-                                   use_pallas=False)
+    yb, _ = DEC.process_ri_batched(cfg, wri, stb, jnp.asarray(x)[None])
     assert np.abs(np.asarray(yb)[0] - g["adb_out"]).max() <= 2e-4
 
 

@@ -1,4 +1,4 @@
-"""Failure-path behavior (VERDICT r2 #8): saf-style Config validation and
+"""Failure-path behavior: saf-style Config validation and
 the reference's SOFA-load-failure → default-HRIRs graceful fallback
 (ambi_bin.c:209-218)."""
 import numpy as np

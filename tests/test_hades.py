@@ -108,7 +108,7 @@ def test_fused_pipeline_matches_two_stage():
 
 @pytest.mark.goldens
 def test_batched_pipeline_matches_per_instance():
-    """process_chunk_batched (N instances in one dispatch, VERDICT r2 #1)
+    """process_chunk_batched (N instances in one dispatch)
     is numerically identical to running each instance separately."""
     import jax.numpy as jnp
 

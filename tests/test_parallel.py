@@ -74,7 +74,7 @@ def test_ambi_bin_shard_map_parity_and_state_carry():
     mesh = pmesh.make_mesh(8)
 
     def step(w, s, xx):
-        return ambi_bin.process_ri_batched(cfg, w, s, xx, use_pallas=False)
+        return ambi_bin.process_ri_batched(cfg, w, s, xx)
 
     # single-device reference: two consecutive blocks
     y1_ref, st1_ref = jax.jit(step)(wri, st, x)
@@ -105,7 +105,7 @@ def test_ambi_bin_namedsharding_dp_tp_autopartition():
     mesh = pmesh.make_mesh(8, tp=2)
 
     def step(w, s, xx):
-        return ambi_bin.process_ri_batched(cfg, w, s, xx, use_pallas=False)
+        return ambi_bin.process_ri_batched(cfg, w, s, xx)
 
     y_ref, _ = jax.jit(step)(wri, st, x)
 
@@ -141,8 +141,7 @@ def test_binauraliser_shard_map_parity():
         rng.uniform(-90, 90, (n_streams, n_src))], axis=-1).astype(np.float32))
 
     def step(s, xx, dd):
-        return binauraliser.process_ri_batched(cfg, w, s, xx, dd,
-                                               use_pallas=False)
+        return binauraliser.process_ri_batched(cfg, w, s, xx, dd)
 
     y_ref, st_ref = jax.jit(step)(st, x, dirs)
 
@@ -206,8 +205,7 @@ def test_render_signal_sharded_streams():
     st0 = ambi_bin.init_state_batched(cfg, n_streams)
 
     def proc(st, blk):
-        y, st = ambi_bin.process_ri_batched(cfg, wri, st, blk,
-                                            use_pallas=False)
+        y, st = ambi_bin.process_ri_batched(cfg, wri, st, blk)
         return y, st
 
     run = jax.jit(lambda s, xx: render_signal(proc, s, xx, B))

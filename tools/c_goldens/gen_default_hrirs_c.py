@@ -4,7 +4,7 @@ The reference snapshot declares __default_hrirs et al.
 (framework/modules/saf_hrir/saf_hrir.h:49-61) but the data file is absent.
 We emit it from our synthesised rigid-sphere set (data/default_hrirs.npz,
 produced by tools/gen_default_hrirs.py) so the compiled C reference and the
-TPU framework use the *same* HRIR data — making ambi_bin goldens directly
+JAX framework use the *same* HRIR data — making ambi_bin goldens directly
 comparable.
 """
 import sys

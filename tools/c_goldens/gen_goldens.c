@@ -1,6 +1,6 @@
 /* Golden-fixture generator: runs the REFERENCE C implementation (built by
  * build_ref.sh) on deterministic inputs and dumps raw arrays, which
- * pack_goldens.py bundles into tests/goldens/c_goldens.npz.  The TPU
+ * pack_goldens.py bundles into tests/goldens/c_goldens.npz.  The JAX
  * framework's tests then assert <=1e-4 parity against these outputs —
  * proving the accuracy budget against the actual C code rather than a
  * CPU re-render of the same Python pipeline.

@@ -3,7 +3,7 @@
  *
  * saf_TVConv is driven across position CHANGES so its one-hop crossfade
  * machinery (current/last/last2 filter-set outputs + OLA carries,
- * saf_utility_matrixConv.c:548-) is pinned — the TPU implementation executes
+ * saf_utility_matrixConv.c:548-) is pinned — the JAX implementation executes
  * the same recurrence as batched scan-free einsums.
  */
 #include <stdio.h>
